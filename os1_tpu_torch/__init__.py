@@ -1,0 +1,34 @@
+"""os1_tpu_torch: the PyTorch + CUDA port of os1-tpu for NVIDIA Hopper.
+
+The JAX package ``os1_tpu`` is the reference and stays unchanged; this package
+mirrors its layout (``geometry/``, ``ops/``, ``features/``, ``matching/``,
+``optim/``, ``solvers/``, ``map/``, ``pipeline/``, ``io/``, ``utils/``) so each
+module's counterpart sits at the same path. It imports ``torch`` and never
+``jax`` or ``os1_tpu``.
+
+Kernels written by hand for ``sm_90a`` live under ``csrc/`` and are built on
+first use into ``_build/``. A wrapper launches its kernel for a CUDA tensor or
+raises; it uses its plain PyTorch version only for a tensor on the CPU.
+
+The slice ported so far is the tracking front end with mapping off:
+``System(cfg, enable_mapping=False, enable_loop_closing=False,
+pipelined=False).track_monocular``.
+"""
+
+__version__ = "0.1.0"
+
+import torch as _torch
+
+# Geometry accuracy is the product: reduced-precision (TF32) matmuls and
+# convolutions corrupt small-matrix f32 geometry, the same finding that made
+# the reference force float32 matmul precision.
+_torch.backends.cuda.matmul.allow_tf32 = False
+_torch.backends.cudnn.allow_tf32 = False
+
+
+def default_device() -> _torch.device:
+    """``cuda`` when a card is present, else ``cpu``.
+
+    Callers pass the device on explicitly; nothing in the package moves work
+    to the CPU behind the caller's back."""
+    return _torch.device("cuda" if _torch.cuda.is_available() else "cpu")
