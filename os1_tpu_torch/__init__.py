@@ -10,9 +10,10 @@ Kernels written by hand for ``sm_90a`` live under ``csrc/`` and are built on
 first use into ``_build/``. A wrapper launches its kernel for a CUDA tensor or
 raises; it uses its plain PyTorch version only for a tensor on the CPU.
 
-The slice ported so far is the tracking front end with mapping off:
-``System(cfg, enable_mapping=False, enable_loop_closing=False,
-pipelined=False).track_monocular``.
+The slice ported so far is synchronous tracking with local mapping:
+``System(cfg, enable_mapping=True, enable_loop_closing=False,
+pipelined=False).track_monocular`` (mapping off runs too). Every entry point
+runs on the card unless the caller passes ``device="cpu"``.
 """
 
 __version__ = "0.1.0"
@@ -27,8 +28,9 @@ _torch.backends.cudnn.allow_tf32 = False
 
 
 def default_device() -> _torch.device:
-    """``cuda`` when a card is present, else ``cpu``.
-
-    Callers pass the device on explicitly; nothing in the package moves work
-    to the CPU behind the caller's back."""
-    return _torch.device("cuda" if _torch.cuda.is_available() else "cpu")
+    """``cuda``, or a RuntimeError when no card is present: the port runs on
+    the CPU only when the caller passes ``device="cpu"`` itself."""
+    if not _torch.cuda.is_available():
+        raise RuntimeError("os1_tpu_torch: no CUDA device is available; "
+                           "pass device='cpu' to run on the CPU")
+    return _torch.device("cuda")

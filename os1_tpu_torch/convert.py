@@ -54,6 +54,8 @@ def store_from_numpy(src) -> MapStore:
             setattr(st, name, np.array(getattr(src, name), dtype=val.dtype, copy=True))
     st._kf_seq_next = int(getattr(src, "_kf_seq_next", 0))
     st._pt_cursor = int(getattr(src, "_pt_cursor", 0))
+    st.culled_links = {k: (p, s, np.array(T, np.float32, copy=True))
+                       for k, (p, s, T) in getattr(src, "culled_links", {}).items()}
     return st
 
 

@@ -5,7 +5,9 @@ The BRIEF pattern and the rotated patch table are built by the same numpy
 code from the same seed, so they are identical to the reference's. The
 reference picks BRIEF samples with one-hot bf16 matmuls (a TPU idiom); the
 port gathers them directly and applies the same bf16 rounding to the sampled
-intensities, which gives the same numbers.
+intensities, which gives the same numbers. The two gathers, keypoint windows
+and BRIEF samples, are the kernels P1 and P2 of ``ops/patches.py`` on the
+card.
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ import numpy as np
 import torch
 
 from ..ops import fast, hamming, image, topk
+from ..ops.patches import brief_samples, keypoint_patches
 from ..utils.numerics import float_mod
 
 BORDER = 19
@@ -111,7 +114,7 @@ def _ic_patch_weights() -> tuple[np.ndarray, np.ndarray]:
 
 
 @functools.lru_cache(maxsize=8)
-def make_extractor(cfg: OrbConfig, device: str | torch.device = "cpu"):
+def make_extractor(cfg: OrbConfig, device: str | torch.device = "cuda"):
     """Build an extractor: float32 [H, W] grayscale on ``device`` ->
     FrameFeatures. All levels live in one padded [L, H, W] stack and every
     stage runs once over the whole stack."""
@@ -128,12 +131,11 @@ def make_extractor(cfg: OrbConfig, device: str | torch.device = "cpu"):
     wx_np, wy_np = _ic_patch_weights()
     ic_wx = torch.as_tensor(wx_np.reshape(-1), device=device)
     ic_wy = torch.as_tensor(wy_np.reshape(-1), device=device)
-    sample_table = torch.as_tensor(_rotated_patch_table(cfg.seed), device=device).long()
+    sample_table = torch.as_tensor(_rotated_patch_table(cfg.seed), device=device)
     oct_o = torch.cat([torch.full((budgets[l],), l, dtype=torch.int32, device=device)
                        for l in range(L)])
     scale_per_lane = torch.cat([torch.full((budgets[l],), cfg.scales[l], dtype=torch.float32,
                                            device=device) for l in range(L)])
-    ps_range = torch.arange(PS, device=device)
     H, W = cfg.height, cfg.width
     ys = torch.arange(H, device=device)[None, :, None]
     xs = torch.arange(W, device=device)[None, None, :]
@@ -155,24 +157,18 @@ def make_extractor(cfg: OrbConfig, device: str | torch.device = "cpu"):
         val_o = torch.cat([valid[l, : budgets[l]] for l in range(L)], dim=0)
 
         blurred = image.gaussian_blur(image.replicate_level_edges(pyr, hb, wb))
-        cx = torch.round(xy_o[:, 0]).long()
-        cy = torch.round(xy_o[:, 1]).long()
-        # 32x32 patch per keypoint; start indices clamp into the stack as
-        # lax.dynamic_slice clamps them (invalid lanes may sit anywhere).
-        y0 = torch.clamp(cy - _PC, 0, H - PS)
-        x0 = torch.clamp(cx - _PC, 0, W - PS)
-        rows = (y0[:, None] + ps_range)[:, :, None]
-        cols = (x0[:, None] + ps_range)[:, None, :]
-        patches = blurred[oct_o.long()[:, None, None], rows, cols]  # [N, PS, PS]
-        pflat = patches.reshape(-1, PS * PS)
+        # 32x32 patch per keypoint (P1); start indices clamp into the stack
+        # as lax.dynamic_slice clamps them (invalid lanes may sit anywhere).
+        kps = torch.stack([oct_o, torch.round(xy_o[:, 1]).to(torch.int32),
+                           torch.round(xy_o[:, 0]).to(torch.int32)], dim=1)
+        pflat = keypoint_patches(blurred, kps).reshape(-1, PS * PS)
 
         angle = torch.atan2(pflat @ ic_wy, pflat @ ic_wx)
         two_pi = 2.0 * math.pi
         abin = torch.remainder(
             torch.round(float_mod(angle, two_pi) * (N_ORIENT / two_pi)).to(torch.int32), N_ORIENT)
-        idx = sample_table[abin.long()]  # [N, 512]
-        samples = torch.gather(pflat.to(torch.bfloat16).to(torch.float32), 1, idx)
-        samples = samples.reshape(-1, hamming.BITS, 2)
+        # BRIEF samples of the bin's rotated pattern, rounded to bf16 (P2).
+        samples = brief_samples(pflat, abin, sample_table).reshape(-1, hamming.BITS, 2)
         desc_o = hamming.pack_bits(samples[..., 0] < samples[..., 1])
         return FrameFeatures(xy=xy_o * scale_per_lane[:, None], response=resp_o, angle=angle,
                              octave=oct_o, desc=desc_o, valid=val_o)

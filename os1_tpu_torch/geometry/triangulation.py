@@ -93,6 +93,7 @@ def validate(Tcw1, Tcw2, xw, uv1, uv2, project1, project2, sigma2_1, sigma2_2,
     points = xw
     if enable_far_points and rays1 is not None:
         O1 = se3.camera_center(Tcw1)
+        O1 = O1[..., None, :] if xw.ndim > O1.ndim else O1
         far_pts = O1 + rays1 * QINF_DISTANCE
         far = pos_depth & reproj_ok & (~good_parallax)
         points = torch.where(far[..., None], far_pts, xw)

@@ -42,7 +42,7 @@ def _row_changed(a: np.ndarray, b: np.ndarray) -> np.ndarray:
 class DeviceMirror:
     """Point block, keyframe block and their host shadow."""
 
-    def __init__(self, store: MapStore, device: str | torch.device = "cpu"):
+    def __init__(self, store: MapStore, device: str | torch.device = "cuda"):
         self.store = store
         self.device = torch.device(device)
         self.version = 0

@@ -13,8 +13,10 @@ Descriptors are held as uint32 here, as in the reference; the device mirror
 (map/mirror.py) views them as int32. The store stays on the host; per-frame
 device programs read the mirror.
 
-Only what the tracking front end calls is ported: culling, point replacement
-and spanning-tree repair belong to local mapping and come with it.
+Every method that tracking and synchronous local mapping call is ported:
+allocation, observations both ways, point and keyframe culling, point
+replacement, the spanning tree and its repair, covisibility and the derived
+point state.
 """
 from __future__ import annotations
 
@@ -81,6 +83,10 @@ class MapStore:
     pt_far_class: np.ndarray = field(init=False)  # [P] uint8
 
     def __post_init__(self):
+        # Epoch counter: bumped every time the store is cleared (reset). A
+        # mapping stage snapshots it with its inputs and drops a writeback
+        # whose epoch no longer matches.
+        self.epoch = getattr(self, "epoch", -1) + 1
         K, P, N, M = (
             self.cfg.max_keyframes,
             self.cfg.max_points,
@@ -100,6 +106,12 @@ class MapStore:
         self.kf_seq = np.zeros(K, np.int64)
         self._kf_seq_next = 0
         self.kf_parent = np.full(K, -1, np.int32)
+
+        # Trajectory-anchor links for culled keyframes (the reference's
+        # KeyFrame::mTcp saved at SetBadFlag, KeyFrame.cc:595): (slot, seq) ->
+        # (parent_slot, parent_seq, T_child_wrt_parent), so a frame whose
+        # reference keyframe was culled is walked to a live ancestor.
+        self.culled_links = {}
 
         self.pt_xyz = np.zeros((P, 3), np.float32)
         self.pt_valid = np.zeros(P, bool)
@@ -201,6 +213,21 @@ class MapStore:
         self.kf_desc[k] = np.asarray(feats_desc, np.uint32)
         self.kf_feat_valid[k] = np.asarray(feats_valid, bool)
 
+    def add_observation(self, pt: int, kf: int, feat: int) -> None:
+        """Bind point <-> (kf, feature) both ways (MapPoint::AddObservation +
+        Frame::mvpMapPoints assignment). Dead points are never bound."""
+        if not self.pt_valid[pt]:
+            return
+        if self.kf_obs_point[kf, feat] == pt:
+            return
+        slot = self.pt_n_obs[pt]
+        if slot >= self.cfg.max_obs_per_point:
+            return  # observation table full: drop (rare; oldest stay)
+        self.pt_obs_kf[pt, slot] = kf
+        self.pt_obs_feat[pt, slot] = feat
+        self.pt_n_obs[pt] += 1
+        self.kf_obs_point[kf, feat] = pt
+
     def add_observations(self, pts, kfs, feats) -> None:
         """Bind many (point, kf, feature) triples both ways in one vectorized
         pass (MapPoint::AddObservation + Frame::mvpMapPoints assignment, in
@@ -229,6 +256,170 @@ class MapStore:
         self.pt_obs_feat[ps, slot] = fs
         np.add.at(self.pt_n_obs, ps, 1)
         self.kf_obs_point[ks, fs] = ps
+
+    def remove_observation(self, pt: int, kf: int) -> None:
+        """Unbind a point from a keyframe (MapPoint::EraseObservation)."""
+        slots = self.pt_obs_kf[pt] == kf
+        for s in np.nonzero(slots)[0]:
+            f = self.pt_obs_feat[pt, s]
+            if f >= 0 and self.kf_obs_point[kf, f] == pt:
+                self.kf_obs_point[kf, f] = -1
+        keep = ~slots
+        kfs = self.pt_obs_kf[pt][keep]
+        fts = self.pt_obs_feat[pt][keep]
+        self.pt_obs_kf[pt] = -1
+        self.pt_obs_feat[pt] = -1
+        self.pt_obs_kf[pt, : len(kfs)] = kfs
+        self.pt_obs_feat[pt, : len(fts)] = fts
+        self.pt_n_obs[pt] = int((kfs >= 0).sum())  # the caller decides culling
+
+    def remove_observations(self, pts, kfs) -> None:
+        """Batched :meth:`remove_observation` over (point, keyframe) pairs —
+        the post-BA outlier erase (Optimizer.cc:520-556) calls this once with
+        every outlier observation instead of looping."""
+        pts = np.asarray(pts, np.int64)
+        kfs = np.asarray(kfs, np.int64)
+        if len(pts) == 0:
+            return
+        upts, inv = np.unique(pts, return_inverse=True)
+        M = self.cfg.max_obs_per_point
+        row_kf = self.pt_obs_kf[upts]  # [n, M]
+        rem = np.zeros((len(upts), M), bool)
+        np.logical_or.at(rem, inv, row_kf[inv] == kfs[:, None])
+        # Unbind the keyframe-side feature slots that point back at us.
+        row_ft = self.pt_obs_feat[upts]
+        kf_c = np.clip(row_kf, 0, None)
+        ft_c = np.clip(row_ft, 0, None)
+        mine = rem & (row_ft >= 0) & (self.kf_obs_point[kf_c, ft_c] == upts[:, None])
+        self.kf_obs_point[kf_c[mine], ft_c[mine]] = -1
+        # Compact each affected row: keep slots first, in stable order.
+        order = np.argsort(rem, axis=1, kind="stable")  # False (keep) first
+        self.pt_obs_kf[upts] = np.where(
+            np.take_along_axis(rem, order, 1), -1, np.take_along_axis(row_kf, order, 1)
+        )
+        self.pt_obs_feat[upts] = np.where(
+            np.take_along_axis(rem, order, 1), -1, np.take_along_axis(row_ft, order, 1)
+        )
+        self.pt_n_obs[upts] = ((self.pt_obs_kf[upts] >= 0)).sum(1)
+
+    def cull_points(self, ids: np.ndarray) -> None:
+        """SetBadFlag for a batch of points: clear masks + unbind features
+        (fully vectorized: one scatter over the observation table)."""
+        ids = np.asarray(ids, np.int64)
+        if len(ids) == 0:
+            return
+        kfs = self.pt_obs_kf[ids]  # [n, M]
+        fts = self.pt_obs_feat[ids]
+        kf_c = np.clip(kfs, 0, None)
+        ft_c = np.clip(fts, 0, None)
+        mine = (kfs >= 0) & (fts >= 0) & (self.kf_obs_point[kf_c, ft_c] == ids[:, None])
+        self.kf_obs_point[kf_c[mine], ft_c[mine]] = -1
+        self.pt_valid[ids] = False
+        self.pt_obs_kf[ids] = -1
+        self.pt_obs_feat[ids] = -1
+        self.pt_n_obs[ids] = 0
+        self.pt_visible[ids] = 0
+        self.pt_found[ids] = 0
+        self.pt_far[ids] = False
+        self.pt_far_class[ids] = 0
+
+    def replace_point(self, loser: int, winner: int) -> None:
+        """Merge ``loser`` into ``winner`` (MapPoint::Replace,
+        MapPoint.cc:132-175): every observation of the loser moves to the
+        winner unless the winner is already observed there; the loser dies.
+        Tracking stats accumulate, as in the reference."""
+        if loser == winner or not self.pt_valid[loser]:
+            return
+        for s in range(self.pt_n_obs[loser]):
+            kf, f = int(self.pt_obs_kf[loser, s]), int(self.pt_obs_feat[loser, s])
+            if kf < 0:
+                continue
+            if winner in self.kf_obs_point[kf]:
+                # Winner already seen in this keyframe: just unbind.
+                if self.kf_obs_point[kf, f] == loser:
+                    self.kf_obs_point[kf, f] = -1
+            else:
+                self.kf_obs_point[kf, f] = -1
+                self.add_observation(winner, kf, f)
+        self.pt_found[winner] += self.pt_found[loser]
+        self.pt_visible[winner] += self.pt_visible[loser]
+        self.pt_valid[loser] = False
+        self.pt_obs_kf[loser] = -1
+        self.pt_obs_feat[loser] = -1
+        self.pt_n_obs[loser] = 0
+
+    def update_spanning_tree(self, kf: int) -> None:
+        """Assign kf's parent on its first covisibility update: the
+        strongest covisible keyframe (KeyFrame::UpdateConnections first-
+        connection path, KeyFrame.cc:383-391). Roots keep parent = -1."""
+        if self.kf_parent[kf] >= 0:
+            return
+        w = self.covisibility_weights(kf)
+        # Parent must predate the child (acyclic by construction). Age is
+        # kf_seq, not the slot id (culled slots are reallocated lowest-first)
+        # and not the frame id (which can collide after a session merge).
+        w[self.kf_seq >= self.kf_seq[kf]] = 0
+        best = int(np.argmax(w))
+        if w[best] > 0:
+            self.kf_parent[kf] = best
+
+    def children_of(self, kf: int) -> np.ndarray:
+        return np.nonzero(self.kf_valid & (self.kf_parent == kf))[0]
+
+    def _reparent_children(self, kf: int) -> None:
+        """KeyFrame::SetBadFlag reparenting (KeyFrame.cc:499-585): each child
+        adopts its strongest covisible among a growing candidate set seeded
+        with the dying keyframe's parent; leftovers fall back to that parent."""
+        children = set(int(c) for c in self.children_of(kf))
+        if not children:
+            return
+        parent = int(self.kf_parent[kf])
+        candidates = {parent} if parent >= 0 else set()
+        while children and candidates:
+            best_w, best_child, best_parent = 0, -1, -1
+            for c in children:
+                w = self.covisibility_weights(c)
+                for cand in candidates:
+                    if w[cand] > best_w:
+                        best_w, best_child, best_parent = int(w[cand]), c, cand
+            if best_child < 0:
+                break
+            self.kf_parent[best_child] = best_parent
+            candidates.add(best_child)
+            children.discard(best_child)
+        for c in children:  # no covisibility with any candidate
+            self.kf_parent[c] = parent
+
+    def cull_keyframe(self, kf: int) -> None:
+        """SetBadFlag for a keyframe: reparent its spanning-tree children,
+        release its observations, free the slot (KeyFrame::SetBadFlag,
+        KeyFrame.cc:478-613). The pose relative to the parent is saved
+        (mTcp) so frame-trajectory anchors survive the cull."""
+        self._reparent_children(kf)
+        p = int(self.kf_parent[kf])
+        if p < 0 or not self.kf_valid[p]:
+            # Keyframes culled before their own mapping pass never received
+            # a spanning-tree parent — assign the anchor now (strongest
+            # older covisible; any covisible as a last resort) so the
+            # trajectory walk does not dead-end in the pre-correction world.
+            self.update_spanning_tree(kf)
+            p = int(self.kf_parent[kf])
+            if p < 0 or not self.kf_valid[p]:
+                w = self.covisibility_weights(kf)
+                p = int(np.argmax(w)) if w.max() > 0 else -1
+        if p >= 0 and self.kf_valid[p]:
+            T_cp = (self.kf_T[kf] @ np.linalg.inv(self.kf_T[p])).astype(
+                np.float32
+            )
+            self.culled_links[(int(kf), int(self.kf_seq[kf]))] = (
+                p, int(self.kf_seq[p]), T_cp,
+            )
+        pts = np.unique(self.kf_obs_point[kf][self.kf_obs_point[kf] >= 0])
+        self.remove_observations(pts, np.full(len(pts), kf, np.int64))
+        self.kf_valid[kf] = False
+        self.kf_feat_valid[kf] = False
+        self.kf_obs_point[kf] = -1
+        self.kf_parent[kf] = -1
 
     # ------------------------------------------------------------------ #
     # derived structures

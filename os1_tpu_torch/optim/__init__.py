@@ -6,5 +6,6 @@ from .ba_core import (  # noqa: F401
     BAState,
     ba_begin,
     ba_iterate,
+    ba_reclassify,
     ba_result,
 )

@@ -179,6 +179,16 @@ def ba_iterate(prob: BAProblem, state: BAState, n: int) -> BAState:
     return BAState(cam_T=cam_T, points=points, active=state.active, lam=lam, cost=cost)
 
 
+def ba_reclassify(prob: BAProblem, state: BAState, lam0: float = 1e-4) -> BAState:
+    """Drop chi2/depth outliers from the active set and reset the damping: the
+    boundary between the reference's 5- and 10-iteration local-BA phases
+    (Optimizer.cc:466-510)."""
+    active = classify_obs(prob, state.cam_T, state.points)
+    lam = torch.tensor(lam0, dtype=prob.points.dtype, device=prob.points.device)
+    return BAState(cam_T=state.cam_T, points=state.points, active=active, lam=lam,
+                   cost=_cost_only(prob, state.cam_T, state.points, active))
+
+
 def ba_result(prob: BAProblem, state: BAState) -> BAResult:
     return BAResult(cam_T=state.cam_T, points=state.points,
                     obs_inlier=classify_obs(prob, state.cam_T, state.points), cost=state.cost)

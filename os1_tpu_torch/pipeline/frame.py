@@ -45,7 +45,7 @@ def pack_host(feats: FrameFeatures, xy_un: torch.Tensor) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=8)
-def make_frame_builder(orb_cfg: OrbConfig, device: str | torch.device = "cpu"):
+def make_frame_builder(orb_cfg: OrbConfig, device: str | torch.device = "cuda"):
     device = torch.device(device)
     extractor = make_extractor(orb_cfg, device)
     sigma2_table = torch.tensor(orb_cfg.sigma2, dtype=torch.float32, device=device)

@@ -1,12 +1,17 @@
-"""System facade: the public API of the SLAM engine. Port of the synchronous,
-mapping-off slice of os1_tpu/pipeline/system.py (reference System.cc:41-184).
+"""System facade: the public API of the SLAM engine. Port of the synchronous
+slice of os1_tpu/pipeline/system.py (reference System.cc:41-184).
 
-The slice is ``System(cfg, enable_mapping=False, enable_loop_closing=False,
+The slice is ``System(cfg, enable_mapping=True, enable_loop_closing=False,
 pipelined=False)``: per frame ORB extraction, the two-view bootstrap with its
-initial BA, and the fused tracker against the device-resident map mirror;
-keyframes are inserted (observations, mirror rows, materialization). Every
-option outside the slice raises ``NotImplementedError`` naming the ROADMAP
-item that brings it.
+initial BA, and the fused tracker against the device-resident map mirror; per
+keyframe the keyframe is materialized, its mirror row published, local
+mapping run (triangulation, fusion, local BA, culling) and the mirror
+refreshed, before the next frame. ``enable_mapping=False`` is the
+localization-only mode. Every option outside the slice raises
+``NotImplementedError`` naming the ROADMAP item that brings it.
+
+The system runs on the card: ``device=None`` means ``cuda`` and raises when
+there is none; only an explicit ``device="cpu"`` runs it on the CPU.
 """
 from __future__ import annotations
 
@@ -22,6 +27,7 @@ from ..map.store import MapStore
 from ..utils.profiling import StageTimer
 from .config import SlamConfig
 from .frame import unpack_host
+from .local_mapping import LocalMapper
 from .tracking import Tracker, TrackingState
 
 
@@ -40,13 +46,11 @@ class System:
     coop_mapping: bool = False
     distributed: bool | None = None
     store: MapStore = None
-    device: torch.device | str | None = None  # None: default_device()
+    device: torch.device | str | None = None  # None: cuda, or raise without a card
     sampler: object = None  # RANSAC hypothesis sampler (see Tracker)
     tracker: Tracker = field(init=False)
 
     def __post_init__(self):
-        if self.enable_mapping:
-            raise _not_ported("Local mapping (enable_mapping=True)", "item 7: local_mapping.py")
         if self.enable_loop_closing:
             raise _not_ported("Loop closing (enable_loop_closing=True)", "item 10")
         if self.pipelined:
@@ -64,6 +68,11 @@ class System:
         self.reads = self.tracker.reads
         self.mirror = DeviceMirror(self.store, self.device)
         self.tracker.mirror = self.mirror
+        self.mapper = None
+        if self.enable_mapping:
+            self.mapper = LocalMapper(cfg=self.cfg, store=self.store, mirror=self.mirror,
+                                      timer=self.timer, reads=self.reads)
+            self.mapper.protected_kf_fn = lambda: self.tracker.ref_kf
         self.tracker.on_new_keyframe = self._on_new_keyframe
         self.tracker.on_reset = self._on_reset
         self._kf_count = 0
@@ -75,10 +84,17 @@ class System:
         self._pending_frames.clear()
         self.mirror.refresh()
 
+    def set_timer(self, timer: StageTimer) -> None:
+        """Use ``timer`` for every stage of the tracker and the mapper."""
+        self.timer = self.tracker.timer = timer
+        if self.mapper is not None:
+            self.mapper.timer = timer
+
     def _on_new_keyframe(self, kf: int, bootstrap: bool = False, frame=None):
-        """Synchronous keyframe event with mapping off: materialize the
-        keyframe's feature arrays, then publish its mirror row and the
-        changed map state before the next frame."""
+        """Synchronous keyframe event (the reference package's inline branch):
+        materialize the keyframe's feature arrays, publish its mirror row,
+        run local mapping on it, and publish the changed map state, all
+        before the next frame."""
         self._kf_count += 1
         if frame is not None:
             self._pending_frames[kf] = frame
@@ -86,6 +102,10 @@ class System:
         with self.timer("mirror.refresh"):
             self.mirror.insert_keyframe_row(kf)
             self.mirror.refresh_dynamic()
+        if self.mapper is not None:
+            self.mapper.process(kf, bootstrap=bootstrap)
+            with self.timer("mirror.refresh"):
+                self.mirror.refresh_dynamic()
 
     def _materialize_kf(self, kf: int):
         frame = self._pending_frames.pop(kf, None)

@@ -53,7 +53,7 @@ class TrackedFrame:
 class Tracker:
     cfg: SlamConfig
     store: MapStore
-    device: torch.device = torch.device("cpu")
+    device: torch.device | str = "cuda"
     # sampler(valid, iters, k) -> [iters, k] RANSAC hypothesis indices, called
     # twice per bootstrap attempt (homography, then fundamental). None: a
     # Gumbel top-k from a torch.Generator seeded with 0 on ``device``.
@@ -120,14 +120,26 @@ class Tracker:
 
     def frame_trajectory(self):
         """[(timestamp, frame_id, Tcw)] re-anchored through each reference
-        keyframe's current pose; where that keyframe is gone, the pose as it
-        was recorded. (Without a mapper no keyframe is culled, so there is no
-        ancestor walk.)"""
+        keyframe's current pose. A culled reference is walked to a live
+        ancestor through the relative poses saved at its cull (the reference's
+        SaveTrajectoryTUM ``while (pKF->isBad()) Trw *= mTcp`` walk); only a
+        fully dead chain falls back to the pose as it was recorded."""
         st = self.store
         out = []
         for ts, fid, ref, seq, T_rel, T_abs in self.trajectory:
-            live = ref >= 0 and st.kf_valid[ref] and st.kf_seq[ref] == seq
-            out.append((ts, fid, T_rel @ st.kf_T[ref] if live else T_abs))
+            T = None
+            if ref >= 0:
+                T_acc, r, s = T_rel, ref, seq
+                for _ in range(256):  # bounded ancestor walk
+                    if st.kf_valid[r] and st.kf_seq[r] == s:
+                        T = T_acc @ st.kf_T[r]
+                        break
+                    link = st.culled_links.get((r, s))
+                    if link is None:
+                        break
+                    r, s, T_cp = link
+                    T_acc = T_acc @ T_cp
+            out.append((ts, fid, T if T is not None else T_abs))
         return out
 
     # ------------------------------------------------------------------ #

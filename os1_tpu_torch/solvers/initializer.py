@@ -38,7 +38,7 @@ class GumbelSampler:
     """[iters, k] distinct indices of valid matches by Gumbel top-k per row,
     from an explicit generator (the reference draws from jax.random)."""
 
-    def __init__(self, seed: int = 0, device: str | torch.device = "cpu"):
+    def __init__(self, seed: int = 0, device: str | torch.device = "cuda"):
         self.generator = torch.Generator(device=device)
         self.generator.manual_seed(seed)
 

@@ -67,6 +67,12 @@ class HostReads:
         self.count += 1
         return t.detach().cpu().numpy()
 
+    def numpy_all(self, ts):
+        """One read of several results of the same device work: the first
+        copy waits for the work, the rest find it done."""
+        self.count += 1
+        return [t.detach().cpu().numpy() for t in ts]
+
     def item(self, t: torch.Tensor):
         self.count += 1
         return t.item()

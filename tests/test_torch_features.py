@@ -102,7 +102,7 @@ def test_topk_ties_break_to_lower_index():
 @pytest.mark.parametrize("h,w", SIZES)
 def test_extractor_identical(h, w):
     cj, ct = _cfgs(h, w)
-    ej, et = jorb.make_extractor(cj), torb.make_extractor(ct)
+    ej, et = jorb.make_extractor(cj), torb.make_extractor(ct, "cpu")
     for idx in (0, 17):
         img = _frame(h, w, idx)
         fj = ej(jnp.asarray(img))

@@ -1,6 +1,7 @@
 """The port stands alone: ``os1_tpu_torch`` imports neither JAX nor the JAX
-package, at import time or while it runs a frame, and its System refuses the
-options outside the ported slice. No JAX is needed to run this file."""
+package, at import time or while it runs frames with mapping on, and its
+System refuses the options outside the ported slice and runs on the CPU only
+when asked to. No JAX is needed to run this file."""
 import ast
 import os
 import subprocess
@@ -15,6 +16,8 @@ _RUN_ONE_FRAME = r"""
 import sys
 import numpy as np
 import os1_tpu_torch
+import os1_tpu_torch.ops.patches
+import os1_tpu_torch.pipeline.local_mapping
 from os1_tpu_torch.features.orb import OrbConfig
 from os1_tpu_torch.geometry.camera import Camera
 from os1_tpu_torch.io import synthetic
@@ -23,13 +26,14 @@ from os1_tpu_torch.pipeline import SlamConfig, System, TrackingState
 
 H, W = 120, 160
 K = np.array([[130.0, 0, 80.0], [0, 130.0, 60.0], [0, 0, 1.0]])
-img = synthetic.render(synthetic.default_scene(seed=3), synthetic.orbit_trajectory(2)[0], K, H, W)
+poses = synthetic.orbit_trajectory(8, advance=0.08)
 cfg = SlamConfig(camera=Camera.make(130.0, 130.0, 80.0, 60.0, width=W, height=H),
                  orb=OrbConfig(height=H, width=W, n_features=256, n_levels=3),
                  map=MapConfig(max_keyframes=8, max_points=512, n_features=256))
-s = System(cfg, enable_mapping=False, enable_loop_closing=False, pipelined=False, device="cpu")
-state, _ = s.track_monocular(img)
-assert state == TrackingState.NOT_INITIALIZED, state
+s = System(cfg, enable_mapping=True, enable_loop_closing=False, pipelined=False, device="cpu")
+states = [s.track_monocular(img)[0] for img in
+          synthetic.render_sequence(synthetic.default_scene(seed=3), poses[:4], K, H, W)]
+assert states[0] == TrackingState.NOT_INITIALIZED, states
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib", "os1_tpu.")) or m == "os1_tpu")
 print("LEAKED", bad)
 """
@@ -79,7 +83,7 @@ def _tiny_config():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(enable_mapping=True, enable_loop_closing=False),
+    dict(enable_mapping=True, enable_loop_closing=False, pipelined=True),
     dict(enable_mapping=False, enable_loop_closing=True),
     dict(enable_mapping=False, enable_loop_closing=False, pipelined=True),
     dict(enable_mapping=False, enable_loop_closing=False, coop_mapping=True),
@@ -102,3 +106,17 @@ def test_persistence_is_refused():
     for call in (lambda: s.save_map("x"), lambda: s.load_map("x"), lambda: s.merge_session("x")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             call()
+
+
+def test_system_without_a_device_needs_a_card(monkeypatch):
+    """device=None means the card: without one, System raises instead of
+    running on the CPU; device="cpu" is the only way onto the CPU."""
+    import torch
+
+    from os1_tpu_torch.pipeline import System
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = _tiny_config()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        System(cfg, enable_loop_closing=False)
+    assert System(cfg, enable_loop_closing=False, device="cpu").device.type == "cpu"

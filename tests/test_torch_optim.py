@@ -144,7 +144,7 @@ def test_initialize_two_view_with_injected_samples(scene):
 def test_gumbel_sampler_draws_distinct_valid_indices():
     valid = torch.zeros(100, dtype=torch.bool)
     valid[::3] = True
-    idx = tinit.GumbelSampler(seed=3)(valid, 200, 8)
+    idx = tinit.GumbelSampler(seed=3, device="cpu")(valid, 200, 8)
     assert idx.shape == (200, 8)
     assert bool(valid[idx].all())
     assert all(len(set(row.tolist())) == 8 for row in idx)
