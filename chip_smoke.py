@@ -10,12 +10,13 @@ fails (non-zero exit, no final result line) if any phase fails:
   2. build: compiles every csrc/*.cu for sm_90a from this checkout, one nvcc
      per source, all started together;
   3. kernels vs plain: each kernel against its plain PyTorch version on the
-     card at the main path's shapes and a ragged one, exactly, with the
+     card at the main path's shapes and ragged ones, exactly, with the
      device time of both (CUDA-graph replay, CUDA events), the time of the
      one PyTorch call that computes the same function where there is one,
-     the eager per-call time and the bound: K1 the Hamming table
-     ([hamming]), P1 the keypoint patch gather and P2 the BRIEF sample
-     gather of the extractor ([patches]);
+     the eager per-call time and the bound: K1's two epilogues, the Hamming
+     table ([hamming]) and the fused gated best/second-best match ([match],
+     in each of the four gate forms the matchers use); P1 the keypoint patch
+     gather and P2 the BRIEF sample gather of the extractor ([patches]);
   4. slice: the 100-frame orbit tracked with mapping off, gated on
      initialization, every frame OK through frame 35, ATE and kernel
      launches (without a mapper the map stops growing and the run is lost
@@ -23,9 +24,17 @@ fails (non-zero exit, no final result line) if any phase fails:
   5. mapping: the bench's 300-frame orbit tracked with local mapping on,
      gated on initialization by frame 10, every frame OK from the first OK
      one to the end, ATE <= 0.2 and launches of every kernel on this path;
+     it also prints whether the run equals the one recorded on the card
+     (RECORDED_RUN), which another host's float libraries may not reproduce;
   6. a second mapping pass with synchronised stage timers for the stage
      table, and whether it reproduced the first pass bit for bit;
   7. the card's extractor against the same code on the CPU.
+
+Both tracking paths run the fused match kernel (every matcher, one launch a
+call), P1 and P2: those are the kernels each path's launch gate requires. The
+table kernel (hamming_matrix_cuda) is no longer launched on either path once
+every matcher is fused; it stays checked in [hamming] and listed with 0
+launches.
 
 The last line is {"ok": true, "device": {...}}; the line before it gives the
 card's name and power limit, and the one before that lists the kernels.
@@ -55,8 +64,22 @@ GATE_MIN_OK = 30
 GATE_ATE = 0.2  # the bench's orbit gate (bench.py GATE_ATE_ORBIT)
 JAX_CPU_LOST_AT = 42  # where the JAX package, mapping off, lost this sequence
 HAMMING_SHAPES = ((1024, 1024), (4096, 1024), (1000, 777))
+# Fused match problems (batch, N, M, A shared, dense gate): the motion and
+# local-map searches, a ragged one, the smallest, K9's fusion lanes and K8's
+# neighbours (one new keyframe against 10, epipolar gate passed dense).
+MATCH_SHAPES = ((1, 1024, 1024, False, False), (1, 4096, 1024, False, False),
+                (1, 1000, 777, False, False), (1, 1, 1, False, False),
+                (20, 1024, 1024, False, False), (10, 1024, 1024, True, True))
+# Both paths as recorded on an NVIDIA H100 80GB HBM3 at 700 W with the
+# table-then-torch matcher; the fused match kernel must reproduce them.
+RECORDED_RUN = dict(init_frame=3, n_ok=297, ate=0.044866, keyframes=21, keyframes_culled=30,
+                    points=1952)
+RECORDED_SLICE = dict(lost_at=44, ate=0.072745)
 PATCH_COUNTS = (1024, 1000)  # keypoints: the main path's, and a ragged count
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (data sheet, 700 W)
+# H100 SXM dense int8 tensor-core rate (data sheet, 700 W). K1's distance core
+# runs .b1 MMAs, for which NVIDIA publishes no H100 rate; this one stands in.
+INT8_OPS_PER_S = 1979e12
 
 
 def log(msg: str) -> None:
@@ -99,6 +122,13 @@ def phase_build():
 def _bound_ms(nbytes: float) -> float:
     """Least time to move ``nbytes`` through device memory."""
     return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def _bound(nbytes: float, int8_ops: float) -> dict:
+    """The larger of the bytes bound and the int8 tensor-core bound."""
+    by_bytes, by_ops = _bound_ms(nbytes), int8_ops / INT8_OPS_PER_S * 1e3
+    return dict(bound_ms=max(by_bytes, by_ops), bound_by="bytes" if by_bytes >= by_ops
+                else "operations", bytes_bound_ms=by_bytes, ops_bound_ms=by_ops)
 
 
 def _event_ms(fn, reps: int = 50) -> float:
@@ -165,7 +195,17 @@ def _fmt(row) -> str:
             f"{row['eager_ms']:.5f} ms, plain {row['eager_plain_ms']:.5f} ms")
 
 
+def _fmt_k1(row) -> str:
+    return (f"{_fmt(row)}; bound by bytes {row['bytes_bound_ms']:.5f} ms, by int8 ops "
+            f"{row['ops_bound_ms']:.5f} ms")
+
+
+def _words(rng, shape):
+    return rng.integers(0, 2**32, shape, dtype=np.uint64).astype(np.uint32)
+
+
 def phase_kernel():
+    """K1's table epilogue against the plain table, exactly."""
     import torch
 
     from os1_tpu_torch.ops.hamming import hamming_matrix
@@ -174,30 +214,126 @@ def phase_kernel():
     rng = np.random.default_rng(0)
     rows = []
     for n, m in HAMMING_SHAPES:
-        a = torch.from_numpy(rng.integers(0, 2**32, (n, 8), dtype=np.uint64)
-                             .astype(np.uint32).view(np.int32)).cuda()
-        b = torch.from_numpy(rng.integers(0, 2**32, (m, 8), dtype=np.uint64)
-                             .astype(np.uint32).view(np.int32)).cuda()
+        a = torch.from_numpy(_words(rng, (n, 8)).view(np.int32)).cuda()
+        b = torch.from_numpy(_words(rng, (m, 8)).view(np.int32)).cuda()
         if not (bool((a < 0).any()) and bool((b < 0).any())):
             raise RuntimeError("the random words do not exercise bit 31")
+        ref = hamming_matrix(a, b)
         before = hamming_matrix_cuda.launches
         out = hamming_matrix_cuda(a, b)
         torch.cuda.synchronize()
         if hamming_matrix_cuda.launches != before + 1:
             raise RuntimeError("hamming_matrix_cuda did not count its launch")
-        ref = hamming_matrix(a, b)
         err = int((out.to(torch.int64) - ref.to(torch.int64)).abs().max())
         if out.shape != (n, m) or err != 0:
-            raise RuntimeError(f"kernel disagrees with the plain version at [{n}, {m}]: "
+            raise RuntimeError(f"table kernel disagrees with the plain version at [{n}, {m}]: "
                                f"max abs err {err}")
         # No single PyTorch call computes a popcount Hamming table.
         row = dict(shape=[n, m], max_abs_err=err,
                    **_timings(lambda: hamming_matrix_cuda(a, b), lambda: hamming_matrix(a, b)))
-        # Bytes: both descriptor sets read once, the int32 table written once.
-        row.update(bound_ms=_bound_ms((n + m) * 32 + n * m * 4), bound_by="bytes")
+        # Bytes: both descriptor sets read once, the int32 table written once;
+        # operations: 2 * N * M * 256 as int8 multiply-adds.
+        row.update(_bound((n + m) * 32 + n * m * 4, 2 * n * m * 256))
         row["table_gbps"] = n * m * 4 / (row["ms"] * 1e-3) / 1e9
-        log(f"[hamming] [{n}, {m}]: exact (max abs err {err}); {_fmt(row)}; "
+        log(f"[hamming] [{n}, {m}]: exact (max abs err {err}); {_fmt_k1(row)}; "
             f"table write {row['table_gbps']:.1f} GB/s")
+        rows.append(row)
+    return rows
+
+
+def _match_problem(rng, nb, n, m, shared_a):
+    """numpy inputs of ``nb`` projection matches: features on the 640x480
+    pixel grid with octaves 0-7; points projected near a source feature with
+    a radius of 4-15 px and an octave within one of it, some exactly on the
+    window's edge, some one ulp outside, two far away (every column gated
+    out); every third column a duplicate of its neighbour, at the same place
+    (distance ties inside the window); bit 31 set."""
+    b = _words(rng, (nb, m, 8))
+    b[:, 1::3] = b[:, 0::3][:, :len(range(1, m, 3))]
+    src = rng.integers(0, m, (nb, n))
+    xy = np.stack([rng.integers(0, W, (nb, m)), rng.integers(0, H, (nb, m))], -1).astype(
+        np.float32)
+    octave_b = rng.integers(0, N_LEVELS, (nb, m)).astype(np.int32)
+    for x in (xy, octave_b):  # each duplicate at its twin's place: ties inside the window
+        x[:, 1::3] = x[:, 0::3][:, :len(range(1, m, 3))]
+    flips = (rng.random((nb, n, 8)) < 0.1).astype(np.uint32) << _words(rng, (nb, n, 8)) % 32
+    a = np.take_along_axis(b, src[..., None], 1) ^ flips
+    a[..., 0] |= np.uint32(1 << 31)
+    xy_src = np.take_along_axis(xy, src[..., None], 1)
+    radius = rng.integers(4, 16, (nb, n)).astype(np.float32)
+    uv = (xy_src + rng.normal(0, 3, (nb, n, 2))).astype(np.float32)
+    k = n // 8
+    uv[:, :k, 0] = xy_src[:, :k, 0] + radius[:, :k]
+    uv[:, k:2 * k, 1] = np.nextafter(xy_src[:, k:2 * k, 1] - radius[:, k:2 * k],
+                                     np.float32(-1e9))
+    uv[:, 2 * k:2 * k + 2] = -1000.0
+    octave_a = np.clip(np.take_along_axis(octave_b, src, 1) + rng.integers(-1, 2, (nb, n)), 0,
+                       N_LEVELS - 1).astype(np.int32)
+    return dict(a=a[:1] if shared_a else a, b=b, uv=uv, radius=radius, xy=xy, octave_a=octave_a,
+                octave_b=octave_b, valid_a=rng.random((nb, n)) < 0.9,
+                valid_b=rng.random((nb, m)) < 0.9)
+
+
+def phase_match():
+    """K1's fused epilogue (gated best/second-best and ratio test) against its
+    plain version, exactly, in each gate form a matcher gives it: window and
+    octave band (the projection and fusion searches), dense (triangulation),
+    window alone with octave 0 folded into the masks (initialization) and
+    the masks alone (the reference keyframe), each at its caller's
+    thresholds."""
+    import torch
+
+    from os1_tpu_torch.ops import pallas_hamming as ph
+
+    rng = np.random.default_rng(2)
+    max_dist, ratio = 100, 0.8  # the local-map search's thresholds
+    rows = []
+    for nb, n, m, shared_a, dense in MATCH_SHAPES:
+        p = _match_problem(rng, nb, n, m, shared_a)
+        t = {k: torch.from_numpy(v.view(np.int32) if v.dtype == np.uint32 else v).cuda()
+             for k, v in p.items()}
+        a, b = t.pop("a"), t.pop("b")
+        gate = (ph.window_gate(t["uv"], t["xy"], t["radius"], t["valid_a"], t["valid_b"])
+                & ph.octave_gate(t["octave_a"], t["octave_b"]))
+        window = {k: t[k] for k in ("uv", "radius", "xy")}
+        forms = dict(
+            factored=(max_dist, ratio, t), dense=(max_dist, ratio, dict(gate=gate)),
+            window=(50, 0.9, dict(valid_a=t["valid_a"] & (t["octave_a"] == 0),
+                                  valid_b=t["valid_b"] & (t["octave_b"] == 0), **window)),
+            masks=(50, 0.7, dict(valid_a=t["valid_a"], valid_b=t["valid_b"])))
+        err = 0
+        for form, (md, rt, kw) in forms.items():
+            ref = ph.gated_match(a, b, md, rt, **kw)
+            before = ph.gated_match_cuda.launches
+            got = ph.gated_match_cuda(a, b, md, rt, **kw)
+            torch.cuda.synchronize()
+            if ph.gated_match_cuda.launches != before + 1:
+                raise RuntimeError("gated_match_cuda did not count its launch")
+            for f, x, y in zip(ph.Top2._fields, got, ref):
+                e = int((x.to(torch.int64) - y.to(torch.int64)).abs().max())
+                err = max(err, e)
+                if x.dtype != y.dtype or x.shape != y.shape or e != 0:
+                    raise RuntimeError(
+                        f"fused kernel ({form} gate) disagrees with the plain version at "
+                        f"B={nb} [{n}, {m}] in {f}: max abs err {e}")
+        kw = forms["dense" if dense else "factored"][2]
+        ref = ph.gated_match(a, b, max_dist, ratio, **kw)
+        row = dict(batch=nb, shape=[n, m], shared_a=shared_a,
+                   gate="dense" if dense else "factored", max_abs_err=err,
+                   n_ok=int(ref.ok.sum()), n_gated_out=int((ref.dist == ph.BIG).sum()),
+                   n_ties=int((ref.second == ref.dist).sum()),
+                   **_timings(lambda: ph.gated_match_cuda(a, b, max_dist, ratio, **kw),
+                              lambda: ph.gated_match(a, b, max_dist, ratio, **kw)))
+        # Bytes: descriptors, the gate (dense: a byte a pair; factored: 17
+        # bytes a row, 13 a column) and 17 bytes of outputs a row;
+        # operations: 2 * B * N * M * 256 as int8 multiply-adds.
+        gate_bytes = nb * n * m if dense else nb * (17 * n + 13 * m)
+        row.update(_bound((a.shape[0] * n + nb * m) * 32 + gate_bytes + nb * n * 17,
+                          2 * nb * n * m * 256))
+        log(f"[match] B={nb} [{n}, {m}]{' shared A' if shared_a else ''}, {row['gate']} gate: "
+            f"exact (max abs err {err}, all four gate forms; {row['n_ok']} ok, "
+            f"{row['n_gated_out']} gated-out rows, {row['n_ties']} ties with the best); "
+            f"{_fmt_k1(row)}")
         rows.append(row)
     return rows
 
@@ -280,11 +416,16 @@ def build_system(device, mapping: bool):
                   device=device)
 
 
+# The kernels both tracking paths launch; hamming_matrix_cuda is counted but
+# no longer on them.
+PATH_KERNELS = ("gated_match_cuda", "extract_patches_cuda", "sample_patches_cuda")
+
+
 def _counters():
     from os1_tpu_torch.ops import patches
-    from os1_tpu_torch.ops.pallas_hamming import hamming_matrix_cuda
+    from os1_tpu_torch.ops.pallas_hamming import gated_match_cuda, hamming_matrix_cuda
 
-    return {"hamming_matrix_cuda": hamming_matrix_cuda,
+    return {"gated_match_cuda": gated_match_cuda, "hamming_matrix_cuda": hamming_matrix_cuda,
             "extract_patches_cuda": patches.extract_patches_cuda,
             "sample_patches_cuda": patches.sample_patches_cuda}
 
@@ -358,14 +499,23 @@ def _log_path(tag, res):
     log(f"[{tag}] OK stretch frames {a}..{b}: {res['fps_ok']:.3f} frames/s, "
         f"p50 {res['p50_ms']:.3f} ms, p99 {res['p99_ms']:.3f} ms, "
         f"host reads/frame {res['host_reads_per_frame']:.3f}")
-    log(f"[{tag}] kernel launches on this path: {res['launches']}; "
-        f"peak device memory {res['peak_mem_bytes']} bytes")
+    n = len(res["states"])
+    per_frame = {k: round(v / n, 3) for k, v in res["launches"].items()}
+    log(f"[{tag}] kernel launches on this path: {res['launches']} ({per_frame} a frame over "
+        f"{n} frames); peak device memory {res['peak_mem_bytes']} bytes")
 
 
 def _launch_gate(res, fails):
-    for k, v in res["launches"].items():
-        if v <= 0:
+    for k in PATH_KERNELS:
+        if res["launches"][k] <= 0:
             fails.append(f"{k} never launched on this path")
+
+
+def _compare_recorded(tag, res, recorded):
+    """Whether this run equals the recorded one (printed, not gated)."""
+    same = {k: (round(res[k], 6) if k == "ate" else res[k]) == v for k, v in recorded.items()}
+    res["equals_recorded"] = same
+    log(f"[{tag}] equal to the run recorded on the H100: {all(same.values())} {same}")
 
 
 def phase_slice(frames, poses):
@@ -378,6 +528,7 @@ def phase_slice(frames, poses):
     res["jax_cpu_lost_at"] = JAX_CPU_LOST_AT
     res["peak_mem_bytes"] = int(torch.cuda.max_memory_allocated())
     _log_path("slice", res)
+    _compare_recorded("slice", res, RECORDED_SLICE)
     first = res["init_frame"]
     fails = []
     if first > GATE_INIT_BY:
@@ -406,6 +557,7 @@ def phase_mapping(frames, poses):
     res["peak_mem_bytes"] = int(torch.cuda.max_memory_allocated())
     res["frames"] = len(frames)
     _log_path("mapping", res)
+    _compare_recorded("mapping", res, RECORDED_RUN)
     log("[mapping] stage table (host clock, stages not synchronised):\n" + sys_.timer.report())
     first = res["init_frame"]
     fails = []
@@ -481,6 +633,7 @@ def main() -> int:
     out = dict(device=name, nvidia_smi=smi)
     out["build_s"] = phase_build()
     out["hamming"] = phase_kernel()
+    out["match"] = phase_match()
     out["patches"] = phase_patches()
 
     frames, poses = render(N_FRAMES)
@@ -505,6 +658,7 @@ def main() -> int:
 
     launches = out["mapping"]["launches"]
     big = next(r for r in out["hamming"] if r["shape"] == [4096, 1024])
+    fused = next(r for r in out["match"] if r["batch"] == 1 and r["shape"] == [4096, 1024])
     p1 = next(r for r in out["patches"]["p1"] if r["n"] == 1024)
     p2 = next(r for r in out["patches"]["p2"] if r["n"] == 1024)
 
@@ -515,6 +669,8 @@ def main() -> int:
                     bound_by=row["bound_by"], library_ms=row["library_ms"])
 
     kernels = [
+        entry("gated_match_cuda", "os1_tpu_torch/csrc/hamming.cu",
+              "os1_tpu/ops/pallas_hamming.py:37", fused, out["match"]),
         entry("hamming_matrix_cuda", "os1_tpu_torch/csrc/hamming.cu",
               "os1_tpu/ops/pallas_hamming.py:37", big, out["hamming"]),
         entry("extract_patches_cuda", "os1_tpu_torch/csrc/patches.cu", "profile_patch.py:94",

@@ -3,13 +3,15 @@ state is calibration, extractor tables, frames and the map).
 
 Each function takes plain numpy arrays, or any object whose fields convert
 with ``np.asarray`` (such as the reference package's NamedTuples and
-dataclasses), so this module imports neither JAX nor ``os1_tpu``.
+dataclasses), so this module imports neither JAX nor ``os1_tpu``. Tensors go
+to ``device``; ``None`` means the package's default, the card.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from . import default_device
 from .features.orb import FrameFeatures, OrbConfig
 from .geometry.camera import Camera
 from .map.mirror import to_device
@@ -17,9 +19,14 @@ from .map.store import MapConfig, MapStore
 from .pipeline.frame import FrameData, pack_host
 
 
-def camera_from_numpy(cam, device="cpu") -> Camera:
+def _device(device) -> torch.device:
+    return torch.device(device) if device is not None else default_device()
+
+
+def camera_from_numpy(cam, device=None) -> Camera:
     """Port Camera from a camera with fields fx, fy, cx, cy, dist [8],
     fisheye, width, height."""
+    device = _device(device)
     f = {k: np.asarray(getattr(cam, k)) for k in Camera._fields}
     return Camera.make(float(f["fx"]), float(f["fy"]), float(f["cx"]), float(f["cy"]),
                        dist=f["dist"].astype(np.float32), fisheye=bool(f["fisheye"]),
@@ -32,8 +39,9 @@ def orb_config_from_fields(cfg) -> OrbConfig:
 
 
 def frame_from_numpy(xy, response, angle, octave, desc, valid, xy_un, sigma2,
-                     device="cpu") -> FrameData:
+                     device=None) -> FrameData:
     """Port FrameData from a frame's arrays (desc uint32 [N, 8])."""
+    device = _device(device)
     d = lambda a: to_device(np.asarray(a), device)  # noqa: E731
     feats = FrameFeatures(xy=d(xy), response=d(response), angle=d(angle),
                           octave=d(np.asarray(octave, np.int32)),
@@ -59,6 +67,6 @@ def store_from_numpy(src) -> MapStore:
     return st
 
 
-def to_torch(a, device="cpu") -> torch.Tensor:
+def to_torch(a, device=None) -> torch.Tensor:
     """Any numpy-convertible array -> torch on ``device`` (uint32 -> int32 bits)."""
-    return to_device(np.asarray(a), device)
+    return to_device(np.asarray(a), _device(device))

@@ -4,7 +4,10 @@ os1_tpu/matching/matchers.py.
 
 The mapping-side variants take leading batch dimensions where the reference
 ``vmap``-ed them: one problem per covisible neighbour (triangulation) or per
-(target, source) keyframe pair (fusion).
+(target, source) keyframe pair (fusion). Every variant is one call of the core
+matcher, so one launch of the fused kernel on the card: the projection gates
+go in factored (per-row window and octave, per-column position and octave),
+the epipolar gate dense.
 """
 from __future__ import annotations
 
@@ -20,9 +23,9 @@ def search_for_initialization(f1: FrameFeatures, f2: FrameFeatures,
                               max_dist: int = core.TH_LOW) -> core.MatchResult:
     """Window search between the two bootstrap frames
     (ORBmatcher::SearchForInitialization, ORBmatcher.cc:400-515)."""
-    gate = core.window_gate(f1.xy, f2.xy, window, f1.valid, f2.valid)
-    gate &= (f1.octave[:, None] == 0) & (f2.octave[None, :] == 0)
-    res = core.match_with_gate(f1.desc, f2.desc, gate, max_dist, ratio)
+    res = core.match_projected(f1.desc, f2.desc, f1.valid & (f1.octave == 0),
+                               f2.valid & (f2.octave == 0), uv=f1.xy, xy=f2.xy, radius=window,
+                               max_dist=max_dist, ratio=ratio)
     res = core.mutual_best(res, f2.desc.shape[0])
     return core.rotation_consistency(f1.angle, f2.angle, res)
 
@@ -34,9 +37,10 @@ def search_by_projection(point_desc, point_uv, point_valid, point_octave,
     """Project-and-match: points with predicted pixels and octaves matched to
     frame features inside a per-point window and octave band
     (ORBmatcher::SearchByProjection, ORBmatcher.cc:45-125 and 1292-1423)."""
-    gate = core.window_gate(point_uv, feats.xy, radius, point_valid, feats.valid)
-    gate &= core.octave_gate(point_octave, feats.octave, octave_lo, octave_hi)
-    res = core.match_with_gate(point_desc, feats.desc, gate, max_dist, ratio)
+    res = core.match_projected(point_desc, feats.desc, point_valid, feats.valid, uv=point_uv,
+                               xy=feats.xy, radius=radius, octave_a=point_octave,
+                               octave_b=feats.octave, lo=octave_lo, hi=octave_hi,
+                               max_dist=max_dist, ratio=ratio)
     if unique:
         res = core.mutual_best(res, feats.desc.shape[0])
     return res
@@ -108,7 +112,7 @@ def fuse_candidates(point_desc, point_uv, point_valid, point_octave, feats: Fram
     """For each projected map point, a duplicate feature in a target keyframe
     (ORBmatcher::Fuse, ORBmatcher.cc:806-1064: radius 3 * scale of the
     predicted octave, best distance <= TH_LOW, no ratio test)."""
-    gate = core.window_gate(point_uv, feats.xy, 3.0 * radius_scale, point_valid, feats.valid)
-    gate &= core.octave_gate(point_octave, feats.octave, -1, 1)
-    res = core.match_with_gate(point_desc, feats.desc, gate, max_dist, ratio=1.0)
+    res = core.match_projected(point_desc, feats.desc, point_valid, feats.valid, uv=point_uv,
+                               xy=feats.xy, radius=3.0 * radius_scale, octave_a=point_octave,
+                               octave_b=feats.octave, lo=-1, hi=1, max_dist=max_dist, ratio=1.0)
     return core.mutual_best(res, feats.desc.shape[-2])

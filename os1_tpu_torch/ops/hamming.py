@@ -7,7 +7,7 @@ XOR and popcount do not care about the sign bit, and torch's ``uint32``
 support is partial. Convert at the numpy edge with ``.view(np.int32)`` /
 ``.view(np.uint32)``.
 
-:func:`hamming_matrix` is the plain version of the CUDA kernel in
+:func:`hamming_matrix` is the plain version of the table kernel in
 ``ops/pallas_hamming.py``: an exact integer SWAR popcount in int64.
 """
 from __future__ import annotations
@@ -59,13 +59,14 @@ def hamming_pairwise(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def hamming_matrix(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Packed [N, 8] x [M, 8] int32 -> [N, M] int32 Hamming distances.
+    """Packed [..., N, 8] x [..., M, 8] int32 -> [..., N, M] int32 Hamming
+    distances (leading dimensions broadcast).
 
-    Plain version: word by word, so the int64 intermediate is [N, M] and not
-    [N, M, 8]."""
+    Plain version: word by word, so the int64 intermediate is [..., N, M] and
+    not [..., N, M, 8]."""
     a64 = a.to(torch.int64)
     b64 = b.to(torch.int64)
-    out = torch.zeros((a.shape[0], b.shape[0]), dtype=torch.int64, device=a.device)
+    out = 0
     for w in range(WORDS):
-        out += _popcount32(torch.bitwise_xor(a64[:, w, None], b64[None, :, w]))
+        out = out + _popcount32(torch.bitwise_xor(a64[..., :, None, w], b64[..., None, :, w]))
     return out.to(torch.int32)

@@ -100,8 +100,8 @@ def _track_reference_kf_core(T0, kf_desc, kf_bound, kf_pt_xyz, kf_angle,
     """Descriptor-only matching against the reference keyframe + pose opt
     (TrackReferenceKeyFrame, Tracking.cc:540-582). Returns (T_opt, bind
     [N_frame] -> keyframe feature index, inlier, n_inliers)."""
-    gate = frame.feats.valid[:, None] & kf_bound[None, :]
-    res = mcore.match_with_gate(frame.feats.desc, kf_desc, gate, max_dist=mcore.TH_LOW, ratio=0.7)
+    res = mcore.match_projected(frame.feats.desc, kf_desc, frame.feats.valid, kf_bound,
+                                max_dist=mcore.TH_LOW, ratio=0.7)
     res = mcore.mutual_best(res, kf_desc.shape[0])
     res = mcore.rotation_consistency(frame.feats.angle, kf_angle, res)
     bound = res.ok

@@ -11,7 +11,7 @@ import pytest
 import torch
 
 from os1_tpu_torch.ops import hamming as th
-from os1_tpu_torch.ops.pallas_hamming import hamming_matrix_cuda
+from os1_tpu_torch.ops.pallas_hamming import gated_match_cuda, hamming_matrix_cuda
 
 SHAPES = [(300, 512), (128, 128), (1000, 777), (1, 5), (37, 129)]
 
@@ -103,7 +103,8 @@ def test_cuda_kernel_matches_plain(n, m):
 @pytest.mark.cuda
 def test_cuda_matcher_ties_match_cpu():
     """On the card the matcher breaks distance, column and histogram ties as
-    on the CPU (lowest index first), with the kernel under it."""
+    on the CPU (lowest index first), with the fused kernel under it, in one
+    launch."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
     from os1_tpu_torch.matching import core
@@ -127,7 +128,7 @@ def test_cuda_matcher_ties_match_cpu():
         r = core.rotation_consistency(ang_a, ang_b.to(dev), r)
         return [x.cpu() for x in r]
 
-    before = hamming_matrix_cuda.launches
+    before = gated_match_cuda.launches
     for x, y in zip(run("cpu"), run("cuda")):
         assert torch.equal(x, y)
-    assert hamming_matrix_cuda.launches == before + 1
+    assert gated_match_cuda.launches == before + 1

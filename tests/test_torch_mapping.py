@@ -71,7 +71,7 @@ def _jax_system():
 
 
 def _port_config(jcfg):
-    return SlamConfig(camera=convert.camera_from_numpy(jcfg.camera),
+    return SlamConfig(camera=convert.camera_from_numpy(jcfg.camera, device="cpu"),
                       orb=convert.orb_config_from_fields(jcfg.orb),
                       map=MapConfig(max_keyframes=64, max_points=8192, n_features=512))
 

@@ -66,7 +66,7 @@ def _jax_system():
 
 
 def _port_config(jcfg):
-    return SlamConfig(camera=convert.camera_from_numpy(jcfg.camera),
+    return SlamConfig(camera=convert.camera_from_numpy(jcfg.camera, device="cpu"),
                       orb=convert.orb_config_from_fields(jcfg.orb),
                       map=MapConfig(max_keyframes=64, max_points=8192, n_features=512))
 
@@ -131,18 +131,18 @@ def test_fused_step_on_the_same_map(runs):
     def port_frame(f):
         ft = f.feats
         return convert.frame_from_numpy(ft.xy, ft.response, ft.angle, ft.octave, ft.desc,
-                                        ft.valid, f.xy_un, f.sigma2)
+                                        ft.valid, f.xy_un, f.sigma2, device="cpu")
 
     tframe = port_frame(jframe)
     step = tfused.make_fused_tracker(cfg)
-    cam = convert.camera_from_numpy(jsys.cfg.camera)
+    cam = convert.camera_from_numpy(jsys.cfg.camera, device="cpu")
+    t = lambda a: convert.to_torch(a, device="cpu")  # noqa: E731
     out_t = step(
         mir.pt_xyz, mir.pt_desc, mir.pt_valid, mir.pt_normal, mir.pt_min_dist, mir.pt_max_dist,
         mir.kf_desc, mir.kf_angle, mir.kf_obs_point, tframe, cam,
-        convert.to_torch(cfg.intr), convert.to_torch(jt.last.Tcw.astype(np.float32)),
-        convert.to_torch(prev.astype(np.float32)), convert.to_torch(jt.last.bind.astype(np.int64)),
-        convert.to_torch(np.asarray(jt.last.data.feats.octave)), max(jt.ref_kf, 0),
-        bool(jt.ref_kf >= 0), convert.to_torch(local_ids), convert.to_torch(local_valid),
+        t(cfg.intr), t(jt.last.Tcw.astype(np.float32)), t(prev.astype(np.float32)),
+        t(jt.last.bind.astype(np.int64)), t(np.asarray(jt.last.data.feats.octave)),
+        max(jt.ref_kf, 0), bool(jt.ref_kf >= 0), t(local_ids), t(local_valid),
         has_vel,
     )
     ht = tfused.unpack_result(out_t["packed"].numpy(), N, L)
