@@ -21,20 +21,34 @@ fails (non-zero exit, no final result line) if any phase fails:
      initialization, every frame OK through frame 35, ATE and kernel
      launches (without a mapper the map stops growing and the run is lost
      once the camera leaves it);
-  5. mapping: the bench's 300-frame orbit tracked with local mapping on,
-     gated on initialization by frame 10, every frame OK from the first OK
-     one to the end, ATE <= 0.2 and launches of every kernel on this path;
-     it also prints whether the run equals the one recorded on the card
+  5. mapping: the bench's 300-frame orbit tracked with synchronous local
+     mapping, gated on initialization by frame 10, every frame OK from the
+     first OK one to the end, ATE <= 0.2 and launches of every kernel on this
+     path; it also prints whether the run equals the one recorded on the card
      (RECORDED_RUN), which another host's float libraries may not reproduce;
-  6. a second mapping pass with synchronised stage timers for the stage
-     table, and whether it reproduced the first pass bit for bit;
-  7. the card's extractor against the same code on the CPU.
+  6. the card's extractor against the same code on the CPU;
+  7. bow: the default vocabulary loaded through the port, and the host C++
+     descent against the plain torch descent, exactly, on the descriptors of
+     an orbit frame;
+  8. coop, the shipped mode: System(cfg, pipelined=True, coop_mapping=True,
+     enable_loop_closing=False) over the 300-frame orbit, twice on fresh
+     systems (the second with synchronised stage timers for the stage table),
+     gated on initialization by frame 10, OK on every frame from the first OK
+     one, ATE <= 0.2, every keyframe materialized and the scheduler idle after
+     flush, the two trajectories bit-identical, and launches of every kernel
+     on the path;
+  9. reloc, on the second coop system: 5 black frames must leave it LOST;
+     the orbit replayed from frame 150 must relocalize within 10 frames, at
+     the pose the pass recorded for that frame (0.05 rad, 0.2 units), with
+     the fused match launched on the LOST frames and the table kernel never.
 
-Both tracking paths run the fused match kernel (every matcher, one launch a
-call), P1 and P2: those are the kernels each path's launch gate requires. The
-table kernel (hamming_matrix_cuda) is no longer launched on either path once
+Every tracking path runs the fused match kernel (every matcher, one launch a
+call; relocalization's five candidates are one 5-lane launch, checked in
+[match] too), P1 and P2: those are the kernels each path's launch gate
+requires. The table kernel (hamming_matrix_cuda) is launched on no path once
 every matcher is fused; it stays checked in [hamming] and listed with 0
-launches.
+launches. The kernels line gives the launches of the shipped mode's first
+pass.
 
 The last line is {"ok": true, "device": {...}}; the line before it gives the
 card's name and power limit, and the one before that lists the kernels.
@@ -62,6 +76,11 @@ GATE_INIT_BY = 10  # initialization frame (the JAX package on CPU: frame 3)
 GATE_OK_THROUGH = 35  # mapping off: OK on every frame from the first OK one through here
 GATE_MIN_OK = 30
 GATE_ATE = 0.2  # the bench's orbit gate (bench.py GATE_ATE_ORBIT)
+GATE_OK_FRACTION = 1.0  # OK frames from the first OK one (bench.py counts them after flush)
+N_BLACK = 5  # black frames that must leave the coop system LOST
+RELOC_FROM = 150  # the orbit frame the replay starts from
+GATE_RELOC_WITHIN = 10  # replayed frames to relocalize in
+GATE_RELOC_RAD, GATE_RELOC_T = 0.05, 0.2  # the JAX relocalization test's pose bounds
 JAX_CPU_LOST_AT = 42  # where the JAX package, mapping off, lost this sequence
 HAMMING_SHAPES = ((1024, 1024), (4096, 1024), (1000, 777))
 # Fused match problems (batch, N, M, A shared, dense gate): the motion and
@@ -103,18 +122,21 @@ def phase_device():
 
 
 def phase_build():
-    """Build every kernel library from csrc/, the nvcc runs side by side."""
+    """Build every library from csrc/, the compilers run side by side: the
+    CUDA kernels with nvcc, the host BoW library with g++."""
     from os1_tpu_torch.ops import pallas_hamming, patches
+    from os1_tpu_torch.vocab import native
 
-    libs = (pallas_hamming.LIBRARY, patches.LIBRARY)
+    libs = (pallas_hamming.LIBRARY, patches.LIBRARY, native.LIBRARY)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libs)) as ex:
         list(ex.map(lambda lib: lib.load(), libs))
     dt = time.perf_counter() - t0
     for lib in libs:
-        built = (f"nvcc {lib.build_seconds:.3f}s" if lib.build_seconds is not None
+        built = (f"{lib.build_seconds:.3f}s" if lib.build_seconds is not None
                  else "already built in _build/")
-        log(f"[build] {os.path.relpath(lib.source)} for sm_90a: {built}")
+        target = "the host" if lib.source.endswith(".cpp") else "sm_90a"
+        log(f"[build] {os.path.relpath(lib.source)} for {target}: {built}")
     log(f"[build] all kernels loaded in {dt:.3f}s")
     return dt
 
@@ -335,7 +357,46 @@ def phase_match():
             f"{row['n_gated_out']} gated-out rows, {row['n_ties']} ties with the best); "
             f"{_fmt_k1(row)}")
         rows.append(row)
+    rows.append(_reloc_match(rng))
     return rows
+
+
+def _reloc_match(rng):
+    """Relocalization's form: 5 candidate lanes, the frame's 1024 descriptors
+    shared by all, the masks-only gate, max_dist 50, ratio 0.75."""
+    import torch
+
+    from os1_tpu_torch.ops import pallas_hamming as ph
+
+    nb, n, m = 5, 1024, 1024
+    p = _match_problem(rng, nb, n, m, shared_a=True)
+    a, b = (torch.from_numpy(p[k].view(np.int32)).cuda() for k in ("a", "b"))
+    kw = {k: torch.from_numpy(p[k]).cuda() for k in ("valid_a", "valid_b")}
+    ref = ph.gated_match(a, b, 50, 0.75, **kw)
+    before = ph.gated_match_cuda.launches
+    got = ph.gated_match_cuda(a, b, 50, 0.75, **kw)
+    torch.cuda.synchronize()
+    if ph.gated_match_cuda.launches != before + 1:
+        raise RuntimeError("gated_match_cuda did not count its launch")
+    err = 0
+    for f, x, y in zip(ph.Top2._fields, got, ref):
+        e = int((x.to(torch.int64) - y.to(torch.int64)).abs().max())
+        err = max(err, e)
+        if x.dtype != y.dtype or x.shape != y.shape or e != 0:
+            raise RuntimeError(f"fused kernel (relocalization's form) disagrees with the plain "
+                               f"version in {f}: max abs err {e}")
+    row = dict(batch=nb, shape=[n, m], shared_a=True, gate="masks", form="reloc",
+               max_abs_err=err, n_ok=int(ref.ok.sum()), n_gated_out=int((ref.dist == ph.BIG).sum()),
+               n_ties=int((ref.second == ref.dist).sum()),
+               **_timings(lambda: ph.gated_match_cuda(a, b, 50, 0.75, **kw),
+                          lambda: ph.gated_match(a, b, 50, 0.75, **kw)))
+    # Bytes: the shared A and the 5 B's descriptors, a mask byte a row and a
+    # column, 17 bytes of outputs a row; operations: 2 * B * N * M * 256.
+    row.update(_bound((n + nb * m) * 32 + nb * (n + m) + nb * n * 17, 2 * nb * n * m * 256))
+    log(f"[match] relocalization's form B={nb} [{n}, {m}] shared A, masks gate, max_dist 50, "
+        f"ratio 0.75: exact (max abs err {err}; {row['n_ok']} ok, {row['n_gated_out']} gated-out "
+        f"rows, {row['n_ties']} ties with the best); {_fmt_k1(row)}")
+    return row
 
 
 def _patch_keypoints(rng, n):
@@ -400,7 +461,7 @@ def phase_patches():
     return out
 
 
-def build_system(device, mapping: bool):
+def build_system(device, mapping: bool, shipped: bool = False):
     from os1_tpu_torch.features.orb import OrbConfig
     from os1_tpu_torch.geometry.camera import Camera
     from os1_tpu_torch.map.store import MapConfig
@@ -412,6 +473,9 @@ def build_system(device, mapping: bool):
         orb=OrbConfig(height=H, width=W, n_features=N_FEATURES, n_levels=N_LEVELS),
         map=MapConfig(max_keyframes=MAP_KEYFRAMES, max_points=MAP_POINTS, n_features=N_FEATURES),
     )
+    if shipped:
+        return System(cfg, pipelined=True, coop_mapping=True, enable_loop_closing=False,
+                      device=device)
     return System(cfg, enable_mapping=mapping, enable_loop_closing=False, pipelined=False,
                   device=device)
 
@@ -437,27 +501,36 @@ def _sync(device):
         torch.cuda.synchronize()
 
 
-def drive(frames, mapping: bool, device="cuda", timer=None):
+def drive(frames, mapping: bool, device="cuda", timer=None, shipped: bool = False):
     """Track ``frames`` through System.track_monocular, with every kernel
     launch count set to 0 just before and read just after. Returns the
-    system, per-frame latency, OK flags, host reads and launch counts."""
+    system, per-frame latency, OK flags, host reads and launch counts.
+    Synchronous paths synchronise the card after every frame; the shipped
+    (pipelined) mode keeps its frames in flight, its latency is the call's,
+    and it ends with flush() and one synchronise, timed as ``wall_s``."""
     from os1_tpu_torch.pipeline import TrackingState
 
-    sys_ = build_system(device, mapping)
+    sys_ = build_system(device, mapping, shipped)
     if timer is not None:
         sys_.set_timer(timer)
     counters = _counters()
     for c in counters.values():
         c.launches = 0
     lat, states, reads = [], [], []
+    t_start = time.perf_counter()
     for i, img in enumerate(frames):
         r0 = sys_.reads.count
         t0 = time.perf_counter()
         state, _ = sys_.track_monocular(img, timestamp=i / 30.0)
-        _sync(device)
+        if not shipped:
+            _sync(device)
         lat.append(time.perf_counter() - t0)
         states.append(state == TrackingState.OK)
         reads.append(sys_.reads.count - r0)
+    if shipped:
+        sys_.flush()
+        _sync(device)
+    sys_.wall_s = time.perf_counter() - t_start
     launches = {k: c.launches for k, c in counters.items()}
     return sys_, np.array(lat), np.array(states), np.array(reads), launches
 
@@ -575,22 +648,6 @@ def phase_mapping(frames, poses):
     return res, traj
 
 
-def phase_stages(frames, first):
-    """Second mapping pass with stage timers that synchronise the card at
-    every stage end, so each stage owns its device time; and whether it
-    reproduced the first pass."""
-    from os1_tpu_torch.utils.profiling import StageTimer
-
-    timer = StageTimer(sync=True)
-    sys_, _, ok, _, _ = drive(frames, mapping=True, timer=timer)
-    log("[stages] stage table (synchronised stages, second pass):\n" + timer.report())
-    traj = sys_.frame_trajectory()
-    states = "".join("O" if s else "." for s in ok)
-    same_states = states == first["states"]
-    return dict(stages={k: [timer.totals[k], timer.counts[k]] for k in timer.totals},
-                states=states, same_states=same_states, traj=traj)
-
-
 def phase_extractor_agreement(frames):
     """The card's extractor against the same code on the CPU, frame 0."""
     import torch
@@ -608,6 +665,195 @@ def phase_extractor_agreement(frames):
     if same_xy != 1.0 or same_desc != 1.0:
         raise RuntimeError("the card's extractor disagrees with the CPU's")
     return dict(same_xy=same_xy, same_desc=same_desc)
+
+
+def phase_bow(frames, device="cuda"):
+    """The default vocabulary through the port, and the host descent against
+    the plain torch descent on the card, on an orbit frame's descriptors."""
+    import torch
+
+    from os1_tpu_torch.features.orb import OrbConfig, make_extractor
+    from os1_tpu_torch.vocab import dbow2, native, tree
+    from os1_tpu_torch.vocab.database import KeyFrameDatabase
+
+    vocab = dbow2.default_vocabulary()  # the one the systems use (cached)
+    path = next(os.path.join(dbow2.DATA_DIR, f) for f in dbow2.DEFAULT_FILES
+                if os.path.exists(os.path.join(dbow2.DATA_DIR, f)))
+    t0 = time.perf_counter()
+    dbow2.load_binary(path)  # a fresh load, timed
+    load_s = time.perf_counter() - t0
+    cfg = OrbConfig(height=H, width=W, n_features=N_FEATURES, n_levels=N_LEVELS)
+    feats = make_extractor(cfg, device)(torch.as_tensor(frames[0]).to(device))
+    desc, valid = feats.desc.cpu().numpy(), feats.valid.cpu().numpy()
+    word, weight = native.bow_transform(vocab, desc, valid)
+    tw, twt = tree.transform(vocab, feats.desc, feats.valid)
+    same_w = bool(np.array_equal(tw.cpu().numpy(), word))
+    same_wt = bool(np.array_equal(twt.cpu().numpy(), weight))
+    db = KeyFrameDatabase(vocab, MAP_KEYFRAMES)
+
+    def median_ms(fn, reps=21):
+        ts = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            ts.append(time.perf_counter() - t0)
+        return float(np.median(ts) * 1e3)
+
+    descent_ms = median_ms(lambda: native.bow_transform(vocab, desc, valid))
+    kf_ms = median_ms(lambda: db.compute_bow(desc, valid))
+    res = dict(nodes=len(vocab.node_desc), words=vocab.n_words, branching=vocab.branching,
+               depth=vocab.depth, load_s=load_s, n_desc=int(valid.sum()), same_words=same_w,
+               same_weights=same_wt, descent_ms=descent_ms, compute_bow_ms=kf_ms)
+    log(f"[bow] vocabulary {vocab.n_words} words, {res['nodes']} nodes (k={vocab.branching}, "
+        f"L={vocab.depth}), {os.path.basename(path)} loaded in {load_s:.3f}s; host descent of {res['n_desc']} "
+        f"descriptors equals the plain torch descent on the card: words {same_w}, weights "
+        f"{same_wt}; host clock, median of 21: {descent_ms:.3f} ms a descent, {kf_ms:.3f} ms "
+        f"a keyframe (descent + sparse vector)")
+    if not (same_w and same_wt):
+        raise RuntimeError("the host BoW descent disagrees with the plain torch descent")
+    return res
+
+
+def _traj_sha(traj) -> str:
+    import hashlib
+
+    poses = np.stack([T for _, _, T in traj]) if traj else np.zeros((0, 4, 4))
+    return hashlib.sha256(np.ascontiguousarray(poses, np.float32).tobytes()).hexdigest()
+
+
+def _peak_mem(device, reset=False):
+    import torch
+
+    if torch.device(device).type != "cuda":
+        return None
+    if reset:
+        torch.cuda.reset_peak_memory_stats()
+    return int(torch.cuda.max_memory_allocated())
+
+
+def phase_coop(frames, poses, device="cuda"):
+    """The shipped mode over the bench orbit, twice on fresh systems; the
+    second pass with synchronised stage timers. Returns the numbers and the
+    second system for the relocalization phase."""
+    from os1_tpu_torch.utils.profiling import StageTimer
+
+    passes = []
+    for k in range(2):
+        timer = StageTimer(sync=True) if k == 1 else None
+        _peak_mem(device, reset=True)
+        sys_, lat, ok, reads, launches = drive(frames, mapping=True, device=device, timer=timer,
+                                               shipped=True)
+        res, traj = summarize(sys_, lat, ok, reads, launches, poses, stretch_end=len(frames))
+        res["peak_mem_bytes"] = _peak_mem(device)
+        res["frames"] = len(frames)
+        res["wall_fps"] = len(frames) / sys_.wall_s
+        res["sha256"] = _traj_sha(traj)
+        st = sys_.store
+        live = np.nonzero(st.kf_valid)[0]
+        res["all_materialized"] = bool(all(st.kf_feat_valid[i].any() for i in live))
+        res["idle_after_flush"] = (not sys_._pending_frames and not sys_.coop.busy()
+                                   and not sys_.tracker._pending)
+        tag = f"coop pass {k + 1}"
+        _log_path(tag, res)
+        log(f"[{tag}] whole run incl. flush {sys_.wall_s:.3f}s = {res['wall_fps']:.3f} frames/s; "
+            f"trajectory sha256 {res['sha256'][:16]}; all keyframes materialized "
+            f"{res['all_materialized']}; idle after flush {res['idle_after_flush']}")
+        first = res["init_frame"]
+        fails = []
+        if first > GATE_INIT_BY:
+            fails.append(f"initialized at frame {first} > {GATE_INIT_BY}")
+        if ok[first:].mean() < GATE_OK_FRACTION or not sys_.state.name == "OK":
+            fails.append(f"OK on {ok[first:].mean():.4f} of the frames from {first}")
+        if not res["finite"]:
+            fails.append("non-finite or misshaped poses")
+        if not res["ate"] <= GATE_ATE:
+            fails.append(f"ATE {res['ate']} > {GATE_ATE}")
+        if not (res["all_materialized"] and res["idle_after_flush"]):
+            fails.append("keyframes left unmaterialized or the scheduler busy after flush")
+        _launch_gate(res, fails)
+        if fails:
+            raise RuntimeError(f"{tag} failed: " + "; ".join(fails))
+        passes.append((res, sys_, timer))
+    (r1, _, _), (r2, sys2, timer) = passes
+    log("[coop] stage table (synchronised stages, second pass):\n" + timer.report())
+    same = r1["sha256"] == r2["sha256"] and r1["states"] == r2["states"]
+    log(f"[coop] second pass vs first: same states {r1['states'] == r2['states']}, "
+        f"bit-identical trajectory {r1['sha256'] == r2['sha256']}")
+    if not same:
+        raise RuntimeError("coop: the two passes differ")
+    out = dict(first=r1, second=r2, rerun_identical=same,
+               stages={k: [timer.totals[k], timer.counts[k]] for k in timer.totals})
+    return out, sys2
+
+
+def phase_reloc(sys_, frames):
+    """Black frames until LOST, then the orbit replayed from RELOC_FROM."""
+    from os1_tpu_torch.pipeline import TrackingState
+
+    recorded = {fid: T for _, fid, T in sys_.frame_trajectory()}
+    counters = _counters()
+    for c in counters.values():
+        c.launches = 0
+    t = len(frames)
+    timer = sys_.timer
+    per_frame = []  # (frame, state after, relocalization ms, fused launches, candidates)
+
+    def feed(img, ts, tag):
+        n0, s0 = timer.counts["trk.relocalize"], timer.totals["trk.relocalize"]
+        g0 = counters["gated_match_cuda"].launches
+        sys_.relocalizer.last_n_candidates = -1
+        state, Tcw = sys_.track_monocular(img, timestamp=ts)
+        attempt = timer.counts["trk.relocalize"] > n0
+        per_frame.append(dict(frame=tag, state=state.name,
+                              relocalize_ms=(timer.totals["trk.relocalize"] - s0) * 1e3
+                              if attempt else None,
+                              candidates=sys_.relocalizer.last_n_candidates if attempt else None,
+                              fused_launches=counters["gated_match_cuda"].launches - g0))
+        return state, Tcw
+
+    black = np.zeros((H, W), np.float32)
+    for j in range(N_BLACK):
+        feed(black, (t + j) / 30.0, f"black {j}")
+    lost = sys_.state == TrackingState.LOST
+    log(f"[reloc] after {N_BLACK} black frames: {sys_.state.name}; loss log "
+        f"{sys_.tracker.loss_log[-2:]}")
+    if not lost:
+        raise RuntimeError(f"reloc: not LOST after {N_BLACK} black frames")
+    recovered, Tcw, i = None, None, 0
+    for i in range(GATE_RELOC_WITHIN):
+        state, Tcw = feed(frames[RELOC_FROM + i], (t + N_BLACK + i) / 30.0,
+                          f"orbit {RELOC_FROM + i}")
+        if state == TrackingState.OK:
+            recovered = i
+            break
+    launches = {k: c.launches for k, c in counters.items()}
+    attempts = [f for f in per_frame if f["relocalize_ms"] is not None]
+    res = dict(lost=lost, recovered_after=recovered, launches=launches, per_frame=per_frame,
+               matched_kf=sys_.relocalizer.last_reloc_kf)
+    for f in per_frame:
+        log(f"[reloc] {f['frame']}: {f['state']}; relocalization "
+            + (f"{f['relocalize_ms']:.3f} ms (synchronised), {f['candidates']} candidates"
+               if f["relocalize_ms"] is not None else "not attempted")
+            + f"; {f['fused_launches']} fused-match launches")
+    if recovered is None:
+        raise RuntimeError(f"reloc: not OK within {GATE_RELOC_WITHIN} replayed frames")
+    ref = recorded[RELOC_FROM + recovered]
+    dR = Tcw[:3, :3] @ ref[:3, :3].T
+    res["rot_err_rad"] = float(np.arccos(np.clip((np.trace(dR) - 1) / 2, -1, 1)))
+    res["t_err"] = float(np.linalg.norm(Tcw[:3, 3] - ref[:3, 3]))
+    log(f"[reloc] OK at replayed frame {recovered} (orbit frame {RELOC_FROM + recovered}), "
+        f"matched keyframe {res['matched_kf']}; pose against the pass's record: "
+        f"{res['rot_err_rad']:.6f} rad, {res['t_err']:.6f} units; {len(attempts)} "
+        f"relocalization attempts; launches from the first black frame to the recovery "
+        f"{launches}")
+    fails = []
+    if res["rot_err_rad"] >= GATE_RELOC_RAD or res["t_err"] >= GATE_RELOC_T:
+        fails.append("relocalized pose too far from the recorded one")
+    if launches["gated_match_cuda"] <= 0 or launches["hamming_matrix_cuda"] != 0:
+        fails.append("the LOST frames did not run the fused match kernel alone")
+    if fails:
+        raise RuntimeError("reloc failed: " + "; ".join(fails))
+    return res
 
 
 def render(n_frames):
@@ -641,14 +887,10 @@ def main() -> int:
     out["extractor_agreement"] = phase_extractor_agreement(frames)
 
     frames, poses = render(N_FRAMES_MAP)
-    out["mapping"], traj1 = phase_mapping(frames, poses)
-    second = phase_stages(frames, out["mapping"])
-    out["stages"] = second["stages"]
-    same_traj = len(traj1) == len(second["traj"]) and all(
-        a[1] == b[1] and np.array_equal(a[2], b[2]) for a, b in zip(traj1, second["traj"]))
-    out["rerun_identical"] = dict(states=second["same_states"], poses_bitwise=same_traj)
-    log(f"[stages] second pass vs first: same states {second['same_states']}, "
-        f"bit-identical poses {same_traj}")
+    out["mapping"], _ = phase_mapping(frames, poses)
+    out["bow"] = phase_bow(frames)
+    out["coop"], sys2 = phase_coop(frames, poses)
+    out["reloc"] = phase_reloc(sys2, frames)
     out["seconds"] = time.perf_counter() - t_start
 
     if args.json:
@@ -656,7 +898,7 @@ def main() -> int:
         with open(args.json, "w") as f:
             json.dump(out, f, indent=1)
 
-    launches = out["mapping"]["launches"]
+    launches = out["coop"]["first"]["launches"]
     big = next(r for r in out["hamming"] if r["shape"] == [4096, 1024])
     fused = next(r for r in out["match"] if r["batch"] == 1 and r["shape"] == [4096, 1024])
     p1 = next(r for r in out["patches"]["p1"] if r["n"] == 1024)

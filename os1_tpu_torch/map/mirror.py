@@ -6,6 +6,12 @@ slices every frame. Publishes are incremental: a host-side shadow of the
 dynamic state is diffed against the store and only the changed point and
 keyframe rows are written into the device tensors with ``index_copy_``
 (the reference's diff-and-scatter publish). Descriptors are viewed as int32.
+
+A keyframe created while the mapping is cooperative publishes its feature row
+straight from the frame's device tensors (:meth:`insert_keyframe_row_device`)
+before the host store holds its features; until the store materializes it,
+the publish keeps the device row's ``kf_feat_valid`` instead of the store's
+all-False row.
 """
 from __future__ import annotations
 
@@ -57,6 +63,10 @@ class DeviceMirror:
         for f in _PT_FIELDS + ("kf_T", "kf_valid") + _KF_STATIC + _KF_ROWS:
             self._publish(f)
         self._shadow = {f: getattr(st, f).copy() for f in _PT_FIELDS + _KF_ROWS}
+        # A wholesale publish clobbers device-published pending rows with the
+        # store's zeros; their features stay excluded (kf_feat_valid False)
+        # until the store materializes them and re-publishes the row.
+        self._pending_rows = set()
         self.version += 1
 
     def _scatter_rows(self, fields, idx: np.ndarray) -> None:
@@ -84,12 +94,24 @@ class DeviceMirror:
 
         self._publish("kf_T")
         self._publish("kf_valid")
+        # Device-published rows graduate once the store materializes them (or
+        # the keyframe dies): from then on the store is authoritative.
+        self._pending_rows = {k for k in self._pending_rows
+                              if st.kf_valid[k] and not st.kf_feat_valid[k].any()}
+        pending = np.array(sorted(self._pending_rows), np.int64)
         K = st.cfg.max_keyframes
         for f in _KF_ROWS:
-            kidx = np.nonzero(_row_changed(getattr(st, f), sh[f]))[0]
+            changed = _row_changed(getattr(st, f), sh[f])
+            if f == "kf_feat_valid":
+                changed[pending] = False  # keep the live device row
+            kidx = np.nonzero(changed)[0]
             if len(kidx) > K // 4:
+                rows = to_device(pending, self.device)
+                keep = self.kf_feat_valid[rows].clone() if f == "kf_feat_valid" else None
                 self._publish(f)
                 sh[f] = getattr(st, f).copy()
+                if keep is not None:
+                    self.kf_feat_valid[rows] = keep
             elif len(kidx):
                 self._scatter_rows((f,), kidx)
         self.version += 1
@@ -98,3 +120,15 @@ class DeviceMirror:
         """Publish one keyframe's static feature arrays (row k)."""
         for f in _KF_STATIC:
             getattr(self, f)[k] = to_device(getattr(self.store, f)[k], self.device)
+
+    def insert_keyframe_row_device(self, k: int, frame) -> None:
+        """Publish a new keyframe's row from the frame's device tensors, with
+        no host round trip, before the host store holds its features (the
+        cooperative keyframe event materializes them later). kf_feat_valid is
+        included: fusion targets and the BA gathers gate on it."""
+        self.kf_xy[k] = frame.xy_un
+        self.kf_angle[k] = frame.feats.angle
+        self.kf_octave[k] = frame.feats.octave
+        self.kf_desc[k] = frame.feats.desc
+        self.kf_feat_valid[k] = frame.feats.valid
+        self._pending_rows.add(int(k))

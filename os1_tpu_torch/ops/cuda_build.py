@@ -1,11 +1,12 @@
-"""Build and bind the hand-written CUDA kernels of ``csrc/``.
+"""Build and bind the hand-written sources of ``csrc/``.
 
-Each source is compiled at first use with ``nvcc -gencode
+Each CUDA source is compiled at first use with ``nvcc -gencode
 arch=compute_90a,code=sm_90a`` into ``_build/`` beside the package, named by a
 hash of the source and the flags, and loaded with ``ctypes``. Every entry
 point is a plain C function that launches on the stream it is given and
-returns ``cudaGetLastError()`` (0 = launched). Nothing is built while a module
-is imported.
+returns ``cudaGetLastError()`` (0 = launched). Host C++ sources (``*.cpp``)
+take the same road with ``g++``; their entry points return 0 on success.
+Nothing is built while a module is imported, and a failed build raises.
 """
 from __future__ import annotations
 
@@ -21,6 +22,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
+GXX_FLAGS = ("-std=c++17", "-O3", "-shared", "-fPIC")
 
 
 def _nvcc() -> str:
@@ -30,16 +32,26 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
+def _gxx() -> str:
+    cand = shutil.which("g++")
+    if cand is None:
+        raise RuntimeError("g++ not found: the host library cannot be built")
+    return cand
+
+
 class KernelLibrary:
     """One ``csrc/`` source, its build and its ctypes binding.
 
     ``functions`` maps each exported C function to its argument types
     (``ctypes.c_void_p`` for pointers and the stream, ``ctypes.c_int`` for
-    ints); every function returns an int error code."""
+    ints); every function returns an int error code. ``compiler`` returns the
+    compiler's path (nvcc by default, g++ for host sources)."""
 
-    def __init__(self, source: str, functions: dict):
+    def __init__(self, source: str, functions: dict, compiler=_nvcc, flags=NVCC_FLAGS):
         self.source = os.path.join(_PKG, "csrc", source)
         self.functions = functions
+        self.compiler = compiler
+        self.flags = flags
         self.build_seconds = None  # nvcc wall time in this process (None: cached)
         self._lib = None
         self._lock = threading.Lock()
@@ -50,17 +62,19 @@ class KernelLibrary:
             if self._lib is not None:
                 return self._lib
             with open(self.source, "rb") as f:
-                digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+                digest = hashlib.sha256(f.read() + " ".join(self.flags).encode()).hexdigest()[:16]
             stem = os.path.splitext(os.path.basename(self.source))[0]
             path = os.path.join(BUILD_DIR, f"lib{stem}_{digest}.so")
             if not os.path.exists(path):
                 os.makedirs(BUILD_DIR, exist_ok=True)
                 tmp = f"{path}.tmp{os.getpid()}"
                 t0 = time.perf_counter()
-                proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, self.source],
+                compiler = self.compiler()
+                proc = subprocess.run([compiler, *self.flags, "-o", tmp, self.source],
                                       capture_output=True, text=True)
                 if proc.returncode != 0:
-                    raise RuntimeError(f"nvcc failed on {self.source}:\n{proc.stderr}")
+                    raise RuntimeError(f"{os.path.basename(compiler)} failed on "
+                                       f"{self.source}:\n{proc.stderr}")
                 os.replace(tmp, path)
                 self.build_seconds = time.perf_counter() - t0
             lib = ctypes.CDLL(path)
@@ -75,4 +89,4 @@ class KernelLibrary:
         """Call one entry point; raise if the launch was refused."""
         err = getattr(self.load(), name)(*args)
         if err != 0:
-            raise RuntimeError(f"{name} failed: cudaError_t {err}")
+            raise RuntimeError(f"{name} failed: error code {err}")

@@ -21,55 +21,61 @@ CHI2_MONO = 5.991
 
 
 class PoseOptResult(NamedTuple):
-    Tcw: torch.Tensor  # [4, 4]
-    inlier: torch.Tensor  # [N] bool
-    n_inliers: torch.Tensor  # int
-    chi2: torch.Tensor  # final robust total cost
+    Tcw: torch.Tensor  # [..., 4, 4]
+    inlier: torch.Tensor  # [..., N] bool
+    n_inliers: torch.Tensor  # [...] int
+    chi2: torch.Tensor  # [...] final robust total cost
 
 
 def _normal_system(Tcw, X, uv, intr, sigma2, active):
-    """6x6 GN system over active observations with Huber IRLS."""
-    r = rp.residual(Tcw, X, uv, intr)
-    J_pose, _ = rp.jacobians(Tcw, X, intr)
-    r = torch.where(active[:, None], r, torch.zeros_like(r))
-    J_pose = torch.where(active[:, None, None], J_pose, torch.zeros_like(J_pose))
+    """6x6 GN system over active observations with Huber IRLS, for a pose
+    [..., 4, 4] and its observations [..., N]."""
+    T_obs = Tcw if Tcw.ndim == 2 else Tcw[..., None, :, :]  # one pose per observation row
+    r = rp.residual(T_obs, X, uv, intr)
+    J_pose, _ = rp.jacobians(T_obs, X, intr)
+    r = torch.where(active[..., None], r, torch.zeros_like(r))
+    J_pose = torch.where(active[..., None, None], J_pose, torch.zeros_like(J_pose))
     inv_s2 = 1.0 / torch.clamp(sigma2, min=1e-8)
     chi2 = torch.sum(r * r, dim=-1) * inv_s2
     w = rp.huber_weight(chi2, rp.HUBER_MONO) * inv_s2
     w = torch.where(active, w, torch.zeros_like(w))
-    H = torch.einsum("nki,n,nkj->ij", J_pose, w, J_pose)
-    b = torch.einsum("nki,n,nk->i", J_pose, w, r)
+    w = w.expand(J_pose.shape[:-2])
+    H = torch.einsum("...nki,...n,...nkj->...ij", J_pose, w, J_pose)
+    b = torch.einsum("...nki,...n,...nk->...i", J_pose, w, r)
     d2 = rp.HUBER_MONO**2
     rho = torch.where(chi2 <= d2, chi2, 2.0 * torch.sqrt(chi2 * d2) - d2)
-    cost = torch.sum(torch.where(active, rho, torch.zeros_like(rho)))
+    cost = torch.sum(torch.where(active, rho, torch.zeros_like(rho)), dim=-1)
     return H, b, cost, chi2
 
 
 def optimize_pose(Tcw0, points, uv, sigma2, valid, intr, rounds: int = 4,
                   iters_per_round: int = 10, accept_reject: bool = True) -> PoseOptResult:
     """Pose-only solve. points [N, 3], uv [N, 2] undistorted pixels,
-    sigma2 [N], valid [N] match mask, intr [4]."""
+    sigma2 [N], valid [N] match mask, intr [4]. Leading batch dimensions of
+    Tcw0 [..., 4, 4], points and valid are independent solves (``uv`` and
+    ``sigma2`` broadcast)."""
     dev, dt = Tcw0.device, Tcw0.dtype
+    batch = Tcw0.shape[:-2]
     eye6 = torch.eye(6, dtype=dt, device=dev)
     Tcw = Tcw0
     inlier = valid
-    cost = torch.tensor(float("inf"), dtype=dt, device=dev)
+    cost = torch.full(batch, float("inf"), dtype=dt, device=dev)
     for _ in range(rounds):
-        lam = torch.tensor(1e-3, dtype=dt, device=dev)
-        cost = torch.tensor(float("inf"), dtype=dt, device=dev)
+        lam = torch.full(batch, 1e-3, dtype=dt, device=dev)
+        cost = torch.full(batch, float("inf"), dtype=dt, device=dev)
         for _ in range(iters_per_round):
             H, b, c, _ = _normal_system(Tcw, points, uv, intr, sigma2, inlier)
-            Hd = H + lam * torch.diag(torch.diagonal(H))
-            delta = -torch.linalg.solve_ex(Hd + 1e-10 * eye6, b[:, None])[0][:, 0]
+            Hd = H + lam[..., None, None] * torch.diag_embed(torch.diagonal(H, dim1=-2, dim2=-1))
+            delta = -torch.linalg.solve_ex(Hd + 1e-10 * eye6, b[..., None])[0][..., 0]
             T_new = se3.exp(delta) @ Tcw
             if not accept_reject:
                 Tcw, cost = T_new, c
                 continue
             _, _, cost_new, _ = _normal_system(T_new, points, uv, intr, sigma2, inlier)
             improved = cost_new < c
-            Tcw = torch.where(improved, T_new, Tcw)
+            Tcw = torch.where(improved[..., None, None], T_new, Tcw)
             lam = torch.where(improved, lam * 0.5, lam * 4.0)
             cost = torch.where(improved, cost_new, c)
         _, _, _, chi2 = _normal_system(Tcw, points, uv, intr, sigma2, valid)
         inlier = valid & (chi2 <= CHI2_MONO)
-    return PoseOptResult(Tcw=Tcw, inlier=inlier, n_inliers=torch.sum(inlier), chi2=cost)
+    return PoseOptResult(Tcw=Tcw, inlier=inlier, n_inliers=torch.sum(inlier, dim=-1), chi2=cost)

@@ -7,12 +7,13 @@ Each stage snapshots what it needs from the host store, runs its device
 program against the device mirror (K8 triangulation, K9 fusion, K10 local BA),
 reads the compacted result back once, and writes it into the store. The
 stages are generators that yield between dispatch and read-back, as the
-reference's are, so a cooperative scheduler can interleave them with tracking;
-:meth:`LocalMapper.process` drains them in order.
+reference's are, so the cooperative scheduler (``workers.CoopScheduler``) can
+interleave them with tracking; :meth:`LocalMapper.process` drains them in
+order. The cooperative hooks are the BA abort flag, checked between the LM
+chunks, and the queue-pressure gate of fusion and local BA.
 
-Not ported: worker threads and queue-pressure gating (``workers.py``), the BA
-abort flag, global BA, the mesh-sharded BA back end and the host-upload
-(mirror-less) paths.
+Not ported: the worker threads, global BA, the mesh-sharded BA back end and
+the host-upload (mirror-less) paths.
 """
 from __future__ import annotations
 
@@ -49,7 +50,16 @@ class LocalMapper:
     reads: HostReads = field(default_factory=HostReads)
     # Tracker's live reference keyframe (wired by System): never culled.
     protected_kf_fn = None  # callable() -> int | None
-    on_cull_keyframe = None  # callback(kf_id)
+    on_cull_keyframe = None  # callback(kf_id), wired by System (db.erase)
+    # BA preemption (reference mbAbortBA, LocalMapping.cc:116): set when a new
+    # keyframe wants in; checked between the LM chunks of local BA.
+    abort_ba: bool = False
+    # Queue-pressure probe, wired by System in cooperative mode: the reference
+    # runs fusion and local BA only when no further keyframes wait
+    # (LocalMapping.cc:72). The deferral is bounded: after cfg.th.ba_debt_max
+    # deferred keyframes they run regardless.
+    pending_fn = None  # callable() -> int
+    _ba_debt: int = 0
 
     # Fusion targets: 20 first-ring + 5x5 second-ring covisible keyframes.
     _T_FUSE = 46
@@ -87,7 +97,15 @@ class LocalMapper:
             self.cull_recent_points(kf)
             self._publish()
         yield from self.create_new_points_steps(kf)
+        self._ba_debt += 1
+        debt_max = self.cfg.th.ba_debt_max
+        forced = debt_max > 0 and self._ba_debt >= debt_max
+        if not forced and self.pending_fn is not None and self.pending_fn():
+            return  # more keyframes wait: the heavy stages run when the queue drains
         yield from self.search_in_neighbors_steps(kf)
+        if not forced and self.pending_fn is not None and self.pending_fn():
+            return
+        self._ba_debt = 0
         yield from self.local_ba_steps(kf)
         with self.timer("lm.cull_kfs"):
             self.cull_keyframes(kf)
@@ -368,6 +386,8 @@ class LocalMapper:
             state = ba_reclassify(prob, state)
         yield
         for _ in range(2):
+            if self.abort_ba:  # a new keyframe waits: skip the remaining chunks
+                break
             with self.timer("lm.ba.dispatch"):
                 state = ba_iterate(prob, state, 5)
             yield
@@ -426,7 +446,17 @@ class LocalMapper:
             slot_lookup[c] = i
         okf_c = np.clip(okf, 0, None)
         slots = slot_lookup[okf_c]
-        valid = (okf >= 0) & (slots >= 0) & st.kf_feat_valid[okf_c, np.clip(oft, 0, None)]
+        # Observations the problem holds: those of materialized keyframes and
+        # of the rows the mirror holds as device-published pending rows (the
+        # device gathers their real features). Too few fixes the newest
+        # keyframe at its tracked pose; too many frees a camera with no real
+        # observation.
+        feat_ok = st.kf_feat_valid[okf_c, np.clip(oft, 0, None)]
+        if self.mirror._pending_rows:
+            pending = np.zeros(st.cfg.max_keyframes, bool)
+            pending[list(self.mirror._pending_rows)] = True
+            feat_ok = feat_ok | pending[okf_c]
+        valid = (okf >= 0) & (slots >= 0) & feat_ok
         obs_valid = np.zeros((P_BA, M), bool)
         obs_valid[:P] = valid  # host copy for the outlier erase
         # A camera with (almost) no observations in the problem would be sent

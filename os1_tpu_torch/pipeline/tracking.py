@@ -1,12 +1,18 @@
 """Tracking front-end state machine (host orchestration of device work).
-Port of the synchronous paths of os1_tpu/pipeline/tracking.py (reference
+Port of the mirror paths of os1_tpu/pipeline/tracking.py (reference
 Tracking.cc:123-342): two-view initialization with its initial BA, the fused
-per-frame step against the device mirror, the keyframe decision and keyframe
-creation.
+per-frame step against the device mirror, synchronous or pipelined, the
+keyframe decision and keyframe creation, and relocalization from LOST.
 
-Not ported yet: pipelined tracking, the unfused host path and
-relocalization. In the LOST state the tracker stays lost, as the reference
-tracker does without a relocalizer; a map with <= 5 keyframes resets.
+Pipelined tracking keeps up to ``PIPELINE_DEPTH`` frames in flight: frame N's
+fused step is dispatched against a device-resident chain of (bind, T, prevT,
+octave) while the host applies frame N - depth's result, so the state and
+pose ``track`` returns lag by the depth. The port's fused step still reads
+its motion-search retry decision on the host (``tracking_fused.py``), so a
+dispatch waits for its own retry read; the packed result is copied to the
+host from dispatch (``utils/transfer.py``) and read at apply.
+
+Not ported: the unfused host path (the system always builds the mirror).
 
 States mirror the reference enum: NO_IMAGES_YET / NOT_INITIALIZED / OK / LOST.
 """
@@ -23,11 +29,17 @@ from ..map.store import MapStore
 from ..optim import BAProblem, ba_begin, ba_iterate, ba_result
 from ..optim.ba_core import C_BUCKETS, P_BUCKETS
 from ..solvers.initializer import GumbelSampler
+from ..utils import transfer
 from ..utils.profiling import HostReads, StageTimer
 from . import tracking_fused
 from . import tracking_kernels as tk
 from .config import SlamConfig
 from .frame import FrameData, make_frame_builder, unpack_host
+
+
+# Frames in flight when pipelined; the state the tracker returns lags this
+# many frames (a young map tracks at depth 1, see _track_frame_pipelined).
+PIPELINE_DEPTH = 2
 
 
 class TrackingState(enum.Enum):
@@ -59,6 +71,7 @@ class Tracker:
     # Gumbel top-k from a torch.Generator seeded with 0 on ``device``.
     sampler: object = None
     mirror: object = None  # DeviceMirror, wired by System
+    pipelined: bool = False  # frame pipelining over the device chain
     state: TrackingState = TrackingState.NO_IMAGES_YET
     last: TrackedFrame | None = None
     init_ref: TrackedFrame | None = None
@@ -66,8 +79,17 @@ class Tracker:
     ref_kf: int = -1
     frame_id: int = 0
     last_kf_frame_id: int = 0
+    last_reloc_frame_id: int = -10**9
     on_new_keyframe = None  # callback(kf, bootstrap=False, frame=None), wired by System
     on_reset = None  # callback(), wired by System
+    relocalizer = None  # callable(frame) -> (ok, Tcw, bind), wired by System
+    # Backpressure hooks, wired by System in cooperative mode (the reference's
+    # SetAcceptKeyFrames / InterruptBA protocol, Tracking.cc:719,755).
+    mapping_idle = None  # callable() -> bool; None: always idle
+    interrupt_ba = None  # callable() -> None
+    # Localization-only mode (mbOnlyTracking): no keyframes, observations or
+    # point statistics are written (Tracking.cc:699-700).
+    only_tracking: bool = False
     trajectory: list = field(default_factory=list)
     loss_log: list = field(default_factory=list)  # (frame_id, reason) per loss
     timer: StageTimer = field(default_factory=StageTimer)
@@ -79,6 +101,8 @@ class Tracker:
         self._build = make_frame_builder(self.cfg.orb, self.device)
         self._fused = tracking_fused.make_fused_tracker(self.cfg, self.reads)
         self._prev_Tcw = None  # pose two frames back
+        self._chain = None  # device-resident (bind, T, prevT, octave) chain
+        self._pending = []  # in flight: [(frame, fid, timestamp, announced packed, local_ids)]
         if self.sampler is None:
             self.sampler = GumbelSampler(seed=0, device=self.device)
         self._intr = torch.as_tensor(self.cfg.intr, device=self.device)
@@ -103,7 +127,11 @@ class Tracker:
         elif self.state == TrackingState.OK:
             with self.timer("trk.track"):
                 self._track_frame(frame, fid, timestamp)
-        # LOST: no relocalizer in this port yet — stay lost.
+        else:
+            with self.timer("trk.relocalize"):
+                self._relocalize(frame, fid, timestamp)
+        # Trajectory entries are recorded once per accepted frame, with the
+        # frame's own timestamp, by the success paths; pipelined results lag.
         Tcw = self.last.Tcw if self.last is not None and self.state == TrackingState.OK else None
         return self.state, Tcw
 
@@ -223,6 +251,7 @@ class Tracker:
         self.last_kf_frame_id = fid
         self.velocity = None
         self._prev_Tcw = None
+        self._chain = None
         self.state = TrackingState.OK
         self._record_trajectory(timestamp, fid, self.last.Tcw)
         if self.on_new_keyframe is not None:
@@ -272,6 +301,9 @@ class Tracker:
     # steady-state tracking (Tracking.cc:231-342)
     # ------------------------------------------------------------------ #
     def _track_frame(self, frame, fid, timestamp):
+        if self.pipelined:
+            self._track_frame_pipelined(frame, fid, timestamp)
+            return
         ok, Tcw, bind, n_inl = self._track_frame_device(frame)
         if not ok:
             self._mark_lost(frame, fid, timestamp, self.last.Tcw, info="pre_fail")
@@ -302,32 +334,101 @@ class Tracker:
         if self._need_new_keyframe(n_inl, fid):
             self._create_new_keyframe(frame, fid, timestamp, bind)
 
-    def _track_frame_device(self, frame):
-        """One fused step and one read of its packed result. Returns
-        (pre_ok, Tcw, bind, n_localmap_inliers)."""
-        has_vel = self.velocity is not None and self.last is not None
-        prev = self._prev_Tcw if self._prev_Tcw is not None else self.last.Tcw
+    def _dispatch_fused(self, frame, last_T, prev_T, last_bind, last_octave, has_vel, host_bind):
+        """Run the fused step against the mirror. The chain inputs are device
+        tensors; ``host_bind`` is the newest applied binding, from which the
+        local-map candidates are chosen."""
         with self.timer("trk.local_select"):
-            local_ids, local_valid = self._local_candidates(self.last.bind)
+            local_ids, local_valid = self._local_candidates(host_bind)
         mir = self.mirror
         ref_ok = self.ref_kf >= 0 and bool(self.store.kf_valid[self.ref_kf])
         out = self._fused(
             mir.pt_xyz, mir.pt_desc, mir.pt_valid, mir.pt_normal,
             mir.pt_min_dist, mir.pt_max_dist, mir.kf_desc, mir.kf_angle, mir.kf_obs_point,
-            frame, self.camera, self._intr,
-            self._dev(self.last.Tcw.astype(np.float32)), self._dev(prev.astype(np.float32)),
-            self._dev(self.last.bind.astype(np.int64)), self.last.data.feats.octave,
+            frame, self.camera, self._intr, last_T, prev_T, last_bind, last_octave,
             max(self.ref_kf, 0), ref_ok, self._dev(local_ids), self._dev(local_valid), has_vel,
         )
-        host = tracking_fused.unpack_result(self.reads.numpy(out["packed"]),
-                                            self.cfg.orb.n_features, self.cfg.th.max_local_points)
+        return out, local_ids
+
+    def _host_result(self, packed: np.ndarray, local_ids):
+        """Unpack a fused result and count its point statistics. Returns
+        (pre_ok, Tcw, bind, n_localmap_inliers, unpacked)."""
+        host = tracking_fused.unpack_result(packed, self.cfg.orb.n_features,
+                                            self.cfg.th.max_local_points)
         if not host["pre_ok"]:
-            return False, None, None, 0
-        bind = host["bind"].astype(np.int64)
+            return False, None, None, 0, host
         st = self.store
-        st.pt_visible[local_ids[host["visible"]]] += 1
-        st.pt_found[bind[bind >= 0]] += 1
-        return True, host["Tcw"].astype(np.float32), bind, int(host["n_inliers"])
+        bind = host["bind"].astype(np.int64)
+        # Binds may reference points culled since the dispatch.
+        bind = np.where((bind >= 0) & st.pt_valid[np.clip(bind, 0, None)], bind, -1)
+        if not self.only_tracking:  # MapPoint::IncreaseVisible/Found
+            st.pt_visible[local_ids[host["visible"]]] += 1
+            st.pt_found[bind[bind >= 0]] += 1
+        return True, host["Tcw"].astype(np.float32), bind, int(host["n_inliers"]), host
+
+    def _track_frame_device(self, frame):
+        """One fused step and one read of its packed result. Returns
+        (pre_ok, Tcw, bind, n_localmap_inliers)."""
+        has_vel = self.velocity is not None and self.last is not None
+        prev = self._prev_Tcw if self._prev_Tcw is not None else self.last.Tcw
+        out, local_ids = self._dispatch_fused(
+            frame, self._dev(self.last.Tcw.astype(np.float32)),
+            self._dev(prev.astype(np.float32)), self._dev(self.last.bind.astype(np.int64)),
+            self.last.data.feats.octave, has_vel, self.last.bind)
+        return self._host_result(self.reads.numpy(out["packed"]), local_ids)[:4]
+
+    # ------------------------------------------------------------------ #
+    # pipelined frame path: dispatch frame N, apply frame N - depth
+    # ------------------------------------------------------------------ #
+    def _track_frame_pipelined(self, frame, fid, timestamp):
+        """Dispatch this frame's fused step on the device chain, then apply
+        the results that fall out of the pipeline's depth."""
+        ch = self._chain
+        if ch is None:  # first pipelined frame after initialization or relocalization
+            prev = self._prev_Tcw if self._prev_Tcw is not None else self.last.Tcw
+            ch = dict(bind=self._dev(self.last.bind.astype(np.int64)),
+                      T=self._dev(self.last.Tcw.astype(np.float32)),
+                      prevT=self._dev(prev.astype(np.float32)),
+                      octave=self.last.data.feats.octave, has_vel=self.velocity is not None)
+        out, local_ids = self._dispatch_fused(frame, ch["T"], ch["prevT"], ch["bind"],
+                                              ch["octave"], ch["has_vel"], self.last.bind)
+        packed = transfer.announce(out["packed"])
+        self._chain = dict(bind=out["bind"], T=out["Tcw"], prevT=ch["T"],
+                           octave=frame.feats.octave, has_vel=True)
+        self._pending.append((frame, fid, timestamp, packed, local_ids))
+        # Young maps track on a short leash: right after initialization the
+        # map covers a narrow view cone and every frame of lag delays the
+        # keyframes that extend it. Full depth once the map has 8 keyframes.
+        depth = PIPELINE_DEPTH if self.store.n_keyframes() >= 8 else 1
+        # Drain to the target depth, so a shrinking depth contracts the backlog.
+        while len(self._pending) > max(1, depth):
+            self._apply_result(*self._pending.pop(0))
+            if self.state != TrackingState.OK:
+                # The chain is poisoned: every frame in flight tracked against
+                # a lost pose. Discard them and let the state machine recover.
+                self._pending.clear()
+                self._chain = None
+                break
+
+    def _apply_result(self, frame, fid, timestamp, packed, local_ids):
+        """Read one announced fused result and run the state machine's tail
+        for its frame."""
+        with self.timer("trk.readback"):
+            packed = transfer.fetch(packed, self.reads)
+        ok, Tcw, bind, n_inl, host = self._host_result(packed, local_ids)
+        if not ok:
+            self._mark_lost(frame, fid, timestamp, self.last.Tcw,
+                            info=f"pre_fail n_pre={host['n_pre']} motion={host['used_motion']}")
+            return
+        self._finish_frame(frame, fid, timestamp, Tcw, bind, n_inl)
+
+    def flush(self):
+        """Apply the frames in flight (end of stream, mode switch)."""
+        while self._pending:
+            self._apply_result(*self._pending.pop(0))
+            if self.state != TrackingState.OK:
+                self._pending.clear()
+        self._chain = None
 
     def _local_candidates(self, bind):
         """Padded local-map candidate ids: points of the covisibility
@@ -369,13 +470,48 @@ class Tracker:
         pts = pts[st.pt_valid[pts]]
         return pts[: th.max_local_points], sorted(local_kfs)
 
+    def _track_local_map(self, frame, Tcw, bind):
+        """TrackLocalMap against a host-chosen local point set (after a
+        relocalization): one unfused search and solve, one read."""
+        st = self.store
+        th = self.cfg.th
+        local_pts, _ = self._local_point_ids(bind)
+        P = th.max_local_points
+        ids = np.zeros(P, np.int64)
+        valid = np.zeros(P, bool)
+        m = min(len(local_pts), P)
+        ids[:m] = local_pts[:m]
+        # Points already bound to this frame are skipped (Tracking.cc:795).
+        valid[:m] = ~np.isin(ids[:m], bind[bind >= 0])
+        prev_bound = bind >= 0
+        d = self._dev
+        T, lbind, inlier, n, visible = tk.track_points(
+            d(Tcw.astype(np.float32)), d(st.pt_xyz[ids]), d(st.pt_desc[ids]),
+            d(valid & st.pt_valid[ids]), torch.zeros(P, dtype=torch.int32, device=self.device),
+            d(st.pt_normal[ids]), d(st.pt_min_dist[ids]), d(st.pt_max_dist[ids]), d(prev_bound),
+            d(st.pt_xyz[np.clip(bind, 0, None)].astype(np.float32)), d(prev_bound),
+            frame, self.camera, self._intr, th.localmap_search_radius,
+            scale_factor=self.cfg.orb.scale_factor, n_levels=self.cfg.orb.n_levels,
+            use_frustum=True, ratio=0.8)
+        T, lbind, inlier, n, visible = self.reads.numpy_all((T, lbind, inlier, n, visible))
+        new_bind = np.where(lbind >= 0, ids[np.clip(lbind, 0, None)],
+                            np.where(prev_bound & inlier, bind, -1))
+        if not self.only_tracking:  # MapPoint::IncreaseVisible/Found
+            st.pt_visible[ids[visible & valid]] += 1
+            st.pt_found[new_bind[new_bind >= 0]] += 1
+        return T, new_bind, int(n)
+
     # ------------------------------------------------------------------ #
     # keyframe decision / creation (Tracking.cc:697-779)
     # ------------------------------------------------------------------ #
     def _need_new_keyframe(self, n_inl, fid):
         th = self.cfg.th
         st = self.store
-        if self.ref_kf < 0:
+        if self.only_tracking or self.ref_kf < 0:
+            return False
+        # Fresh relocalization: hold off insertion for one max-frames window
+        # once the map is mature (Tracking.cc:709-710).
+        if fid < self.last_reloc_frame_id + th.kf_max_frames and st.n_keyframes() > th.kf_max_frames:
             return False
         # Reference matches count points with >= 3 observations when the map
         # has > 2 keyframes (Tracking.cc:711-714).
@@ -405,7 +541,15 @@ class Tracker:
             z_cur = self.last.Tcw[2, :3]
             z_ref = st.kf_T[self.ref_kf][2, :3]
             c4 = float(np.dot(z_cur, z_ref)) < float(np.cos(np.deg2rad(th.kf_view_angle_deg)))
-        return bool(c1 or c2 or c3 or c4)
+        if not (c1 or c2 or c3 or c4):
+            return False
+        # Backpressure (Tracking.cc:719,749-760): a keyframe goes in only while
+        # local mapping accepts one; otherwise interrupt its BA and retry.
+        if self.mapping_idle is None or self.mapping_idle():
+            return True
+        if self.interrupt_ba is not None:
+            self.interrupt_ba()
+        return False
 
     def _create_new_keyframe(self, frame, fid, timestamp, bind):
         st = self.store
@@ -424,6 +568,34 @@ class Tracker:
         if self.on_new_keyframe is not None:
             self.on_new_keyframe(k, frame=frame)
 
+    # ------------------------------------------------------------------ #
+    def _relocalize(self, frame, fid, timestamp):
+        """LOST: relocalize against the keyframe database (Tracking.cc:969),
+        then track the local map from the recovered pose."""
+        if self.relocalizer is None:
+            return
+        ok, Tcw, bind = self.relocalizer(frame)
+        if not ok:
+            return
+        self.last = TrackedFrame(data=frame, Tcw=Tcw, bind=bind, frame_id=fid,
+                                 timestamp=timestamp)
+        Tcw2, bind2, n = self._track_local_map(frame, Tcw, bind)
+        if n < self.cfg.th.min_localmap_inliers:
+            return
+        self.last.Tcw, self.last.bind = Tcw2, bind2
+        self.velocity = None
+        self._prev_Tcw = None
+        self._chain = None
+        self.last_reloc_frame_id = fid
+        # The matched keyframe becomes the reference: the fallback path
+        # tracks against ref_kf, and a stale pre-loss reference makes the
+        # next frames fail and re-lose.
+        rk = self.relocalizer.last_reloc_kf
+        if rk >= 0 and self.store.kf_valid[rk]:
+            self.ref_kf = int(rk)
+        self.state = TrackingState.OK
+        self._record_trajectory(timestamp, fid, self.last.Tcw)
+
     def reset(self):
         """Full tracker reset (Tracking::Reset, Tracking.cc:1133-1175)."""
         self.state = TrackingState.NO_IMAGES_YET
@@ -431,6 +603,8 @@ class Tracker:
         self.init_ref = None
         self.velocity = None
         self._prev_Tcw = None
+        self._chain = None
+        self._pending = []
         self.ref_kf = -1
         self.last_kf_frame_id = 0
         self.store.__post_init__()  # clear all map arrays

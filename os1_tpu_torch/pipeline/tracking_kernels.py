@@ -95,6 +95,13 @@ def _track_points_core(T0, pt_xyz, pt_desc, pt_valid, pt_octave, pt_normal,
     return opt.Tcw, bind, inlier, torch.sum(inlier), visible
 
 
+# The unfused projection search and pose solve against a host-chosen point
+# set (the JAX package jit-compiles the core under this name): the
+# tracker's local-map search after a relocalization and relocalization's
+# guided rounds.
+track_points = _track_points_core
+
+
 def _track_reference_kf_core(T0, kf_desc, kf_bound, kf_pt_xyz, kf_angle,
                              frame: FrameData, intr, pose_opt_cfg: tuple = (4, 10, True)):
     """Descriptor-only matching against the reference keyframe + pose opt

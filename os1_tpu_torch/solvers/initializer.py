@@ -35,20 +35,21 @@ class InitResult(NamedTuple):
 
 
 class GumbelSampler:
-    """[iters, k] distinct indices of valid matches by Gumbel top-k per row,
-    from an explicit generator (the reference draws from jax.random)."""
+    """[..., iters, k] distinct indices of valid matches ([..., N] mask) by
+    Gumbel top-k per row, from an explicit generator (the reference draws
+    from jax.random)."""
 
     def __init__(self, seed: int = 0, device: str | torch.device = "cuda"):
         self.generator = torch.Generator(device=device)
         self.generator.manual_seed(seed)
 
     def __call__(self, valid: torch.Tensor, iters: int, k: int) -> torch.Tensor:
-        u = torch.rand((iters, valid.shape[0]), generator=self.generator,
+        u = torch.rand(valid.shape[:-1] + (iters, valid.shape[-1]), generator=self.generator,
                        device=valid.device, dtype=torch.float32)
         u = torch.clamp(u, min=1e-12, max=1.0 - 1e-7)
         g = -torch.log(-torch.log(u))
-        g = torch.where(valid[None, :], g, torch.full_like(g, float("-inf")))
-        return torch.topk(g, k, dim=1).indices
+        g = torch.where(valid[..., None, :], g, torch.full_like(g, float("-inf")))
+        return torch.topk(g, k, dim=-1).indices
 
 
 def _normalize(xy, valid):
