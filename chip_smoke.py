@@ -40,15 +40,32 @@ fails (non-zero exit, no final result line) if any phase fails:
   9. reloc, on the second coop system: 5 black frames must leave it LOST;
      the orbit replayed from frame 150 must relocalize within 10 frames, at
      the pose the pass recorded for that frame (0.05 rad, 0.2 units), with
-     the fused match launched on the LOST frames and the table kernel never.
+     the fused match launched on the LOST frames and the table kernel never;
+ 10. loop, the shipped mode with loop closing on, System(cfg, pipelined=True,
+     coop_mapping=True), over bench.py's loop sequence (room_scene(seed=3),
+     loop_trajectory(300)), twice on fresh systems (the second with
+     synchronised stage timers: loop detection, the Sim3 candidates, the
+     correction, the essential graph, the global BA's chunks), gated as
+     bench.py gates it: ATE <= 0.22 and at least one loop closed; the two
+     trajectories bit-identical, the fused match launched during the Sim3
+     evaluations, and launches of every kernel on the path. It prints each
+     pass's Sim3 scale-guard readings (Horn's and the LM's scale of every
+     candidate with 20 LM inliers, the verdicts with and without the guard)
+     and the first pass's loop stages on the host clock. Then one global BA
+     chunk on the final map, timed, with its peak device memory;
+ 11. orbit with loop closing on: bench.py's own configuration (the shipped
+     mode, loop closing on) over the 300-frame orbit, one pass, gated on ATE
+     <= 0.2 and OK on every frame from the first OK one; a loop closed there
+     is reported, not gated.
 
 Every tracking path runs the fused match kernel (every matcher, one launch a
 call; relocalization's five candidates are one 5-lane launch, checked in
 [match] too), P1 and P2: those are the kernels each path's launch gate
 requires. The table kernel (hamming_matrix_cuda) is launched on no path once
 every matcher is fused; it stays checked in [hamming] and listed with 0
-launches. The kernels line gives the launches of the shipped mode's first
-pass.
+launches. [match] also checks loop closing's two forms (the bound-feature
+match and the guided projection). The kernels line gives the launches of
+the [loop] phase's first pass, this slice's main path.
 
 The last line is {"ok": true, "device": {...}}; the line before it gives the
 card's name and power limit, and the one before that lists the kernels.
@@ -82,6 +99,12 @@ RELOC_FROM = 150  # the orbit frame the replay starts from
 GATE_RELOC_WITHIN = 10  # replayed frames to relocalize in
 GATE_RELOC_RAD, GATE_RELOC_T = 0.05, 0.2  # the JAX relocalization test's pose bounds
 JAX_CPU_LOST_AT = 42  # where the JAX package, mapping off, lost this sequence
+N_FRAMES_LOOP = 300  # bench.py's loop sequence (bench.py:26, :80-91)
+GATE_ATE_LOOP = 0.22  # bench.py GATE_ATE_LOOP
+GATE_MIN_LOOPS = 1  # bench.py GATE_MIN_LOOPS
+# The shipped mode's orbit ATE with loop closing off, as recorded on an NVIDIA H100
+# 80GB HBM3 at 700 W.
+ORBIT_ATE_LOOP_OFF = 0.195493
 HAMMING_SHAPES = ((1024, 1024), (4096, 1024), (1000, 777))
 # Fused match problems (batch, N, M, A shared, dense gate): the motion and
 # local-map searches, a ragged one, the smallest, K9's fusion lanes and K8's
@@ -325,19 +348,8 @@ def phase_match():
             masks=(50, 0.7, dict(valid_a=t["valid_a"], valid_b=t["valid_b"])))
         err = 0
         for form, (md, rt, kw) in forms.items():
-            ref = ph.gated_match(a, b, md, rt, **kw)
-            before = ph.gated_match_cuda.launches
-            got = ph.gated_match_cuda(a, b, md, rt, **kw)
-            torch.cuda.synchronize()
-            if ph.gated_match_cuda.launches != before + 1:
-                raise RuntimeError("gated_match_cuda did not count its launch")
-            for f, x, y in zip(ph.Top2._fields, got, ref):
-                e = int((x.to(torch.int64) - y.to(torch.int64)).abs().max())
-                err = max(err, e)
-                if x.dtype != y.dtype or x.shape != y.shape or e != 0:
-                    raise RuntimeError(
-                        f"fused kernel ({form} gate) disagrees with the plain version at "
-                        f"B={nb} [{n}, {m}] in {f}: max abs err {e}")
+            err = max(err, _launch_and_check(a, b, md, rt, kw,
+                                             f"{form} gate at B={nb} [{n}, {m}]"))
         kw = forms["dense" if dense else "factored"][2]
         ref = ph.gated_match(a, b, max_dist, ratio, **kw)
         row = dict(batch=nb, shape=[n, m], shared_a=shared_a,
@@ -358,6 +370,72 @@ def phase_match():
             f"{_fmt_k1(row)}")
         rows.append(row)
     rows.append(_reloc_match(rng))
+    rows.extend(_loop_match(rng))
+    return rows
+
+
+def _launch_and_check(a, b, max_dist, ratio, kw, what):
+    """One counted launch of the fused match against its plain version:
+    the max abs error (0), or raise."""
+    import torch
+
+    from os1_tpu_torch.ops import pallas_hamming as ph
+
+    ref = ph.gated_match(a, b, max_dist, ratio, **kw)
+    before = ph.gated_match_cuda.launches
+    got = ph.gated_match_cuda(a, b, max_dist, ratio, **kw)
+    torch.cuda.synchronize()
+    if ph.gated_match_cuda.launches != before + 1:
+        raise RuntimeError("gated_match_cuda did not count its launch")
+    err = 0
+    for f, x, y in zip(ph.Top2._fields, got, ref):
+        e = int((x.to(torch.int64) - y.to(torch.int64)).abs().max())
+        err = max(err, e)
+        if x.dtype != y.dtype or x.shape != y.shape or e != 0:
+            raise RuntimeError(f"fused kernel ({what}) disagrees with the plain version in {f}: "
+                               f"max abs err {e}")
+    return err
+
+
+def _loop_match(rng):
+    """Loop closing's two forms, at their shapes and thresholds: the
+    bound-feature match of a Sim3 candidate (B=1 [1024, 1024], the masks
+    gate, max_dist 50, ratio 0.75) and its guided projection (B=1
+    [4096, 1024] loop-region points, an 8-pixel window, octave band -8..8
+    around octave 0, max_dist 50, ratio 1.0)."""
+    import torch
+
+    from os1_tpu_torch.ops import pallas_hamming as ph
+
+    rows = []
+    p = _match_problem(rng, 1, 1024, 1024, shared_a=False)
+    a, b = (torch.from_numpy(p[k].view(np.int32)).cuda() for k in ("a", "b"))
+    kw = {k: torch.from_numpy(p[k]).cuda() for k in ("valid_a", "valid_b")}
+    forms = [("bound-feature match", "masks", 50, 0.75, a, b, kw,
+              lambda n, m: (n + m) * 32 + (n + m) + n * 17)]
+    p = _match_problem(rng, 1, 4096, 1024, shared_a=False)
+    a2, b2 = (torch.from_numpy(p[k].view(np.int32)).cuda() for k in ("a", "b"))
+    kw2 = {k: torch.from_numpy(p[k]).cuda() for k in ("uv", "xy", "valid_a", "valid_b",
+                                                       "octave_b")}
+    kw2.update(radius=torch.full((1, 4096), 8.0, device="cuda"),
+               octave_a=torch.zeros((1, 4096), dtype=torch.int32, device="cuda"), lo=-8, hi=8)
+    forms.append(("guided projection", "factored", 50, 1.0, a2, b2, kw2,
+                  lambda n, m: (n + m) * 32 + 17 * n + 13 * m + n * 17))
+    for what, gate, md, rt, a, b, kw, nbytes in forms:
+        ref = ph.gated_match(a, b, md, rt, **kw)
+        err = _launch_and_check(a, b, md, rt, kw, f"loop closing's {what}")
+        n, m = a.shape[1], b.shape[1]
+        row = dict(batch=1, shape=[n, m], shared_a=False, gate=gate, form=f"loop: {what}",
+                   max_abs_err=err, n_ok=int(ref.ok.sum()),
+                   n_gated_out=int((ref.dist == ph.BIG).sum()),
+                   n_ties=int((ref.second == ref.dist).sum()),
+                   **_timings(lambda: ph.gated_match_cuda(a, b, md, rt, **kw),
+                              lambda: ph.gated_match(a, b, md, rt, **kw)))
+        row.update(_bound(nbytes(n, m), 2 * n * m * 256))
+        log(f"[match] loop closing's {what} B=1 [{n}, {m}], {gate} gate, max_dist {md}, "
+            f"ratio {rt}: exact (max abs err {err}; {row['n_ok']} ok, {row['n_gated_out']} "
+            f"gated-out rows, {row['n_ties']} ties with the best); {_fmt_k1(row)}")
+        rows.append(row)
     return rows
 
 
@@ -373,18 +451,7 @@ def _reloc_match(rng):
     a, b = (torch.from_numpy(p[k].view(np.int32)).cuda() for k in ("a", "b"))
     kw = {k: torch.from_numpy(p[k]).cuda() for k in ("valid_a", "valid_b")}
     ref = ph.gated_match(a, b, 50, 0.75, **kw)
-    before = ph.gated_match_cuda.launches
-    got = ph.gated_match_cuda(a, b, 50, 0.75, **kw)
-    torch.cuda.synchronize()
-    if ph.gated_match_cuda.launches != before + 1:
-        raise RuntimeError("gated_match_cuda did not count its launch")
-    err = 0
-    for f, x, y in zip(ph.Top2._fields, got, ref):
-        e = int((x.to(torch.int64) - y.to(torch.int64)).abs().max())
-        err = max(err, e)
-        if x.dtype != y.dtype or x.shape != y.shape or e != 0:
-            raise RuntimeError(f"fused kernel (relocalization's form) disagrees with the plain "
-                               f"version in {f}: max abs err {e}")
+    err = _launch_and_check(a, b, 50, 0.75, kw, "relocalization's form")
     row = dict(batch=nb, shape=[n, m], shared_a=True, gate="masks", form="reloc",
                max_abs_err=err, n_ok=int(ref.ok.sum()), n_gated_out=int((ref.dist == ph.BIG).sum()),
                n_ties=int((ref.second == ref.dist).sum()),
@@ -461,7 +528,7 @@ def phase_patches():
     return out
 
 
-def build_system(device, mapping: bool, shipped: bool = False):
+def build_system(device, mapping: bool, shipped: bool = False, loop: bool = False):
     from os1_tpu_torch.features.orb import OrbConfig
     from os1_tpu_torch.geometry.camera import Camera
     from os1_tpu_torch.map.store import MapConfig
@@ -474,7 +541,7 @@ def build_system(device, mapping: bool, shipped: bool = False):
         map=MapConfig(max_keyframes=MAP_KEYFRAMES, max_points=MAP_POINTS, n_features=N_FEATURES),
     )
     if shipped:
-        return System(cfg, pipelined=True, coop_mapping=True, enable_loop_closing=False,
+        return System(cfg, pipelined=True, coop_mapping=True, enable_loop_closing=loop,
                       device=device)
     return System(cfg, enable_mapping=mapping, enable_loop_closing=False, pipelined=False,
                   device=device)
@@ -501,7 +568,8 @@ def _sync(device):
         torch.cuda.synchronize()
 
 
-def drive(frames, mapping: bool, device="cuda", timer=None, shipped: bool = False):
+def drive(frames, mapping: bool, device="cuda", timer=None, shipped: bool = False,
+          loop: bool = False, on_build=None):
     """Track ``frames`` through System.track_monocular, with every kernel
     launch count set to 0 just before and read just after. Returns the
     system, per-frame latency, OK flags, host reads and launch counts.
@@ -510,9 +578,11 @@ def drive(frames, mapping: bool, device="cuda", timer=None, shipped: bool = Fals
     and it ends with flush() and one synchronise, timed as ``wall_s``."""
     from os1_tpu_torch.pipeline import TrackingState
 
-    sys_ = build_system(device, mapping, shipped)
+    sys_ = build_system(device, mapping, shipped, loop)
     if timer is not None:
         sys_.set_timer(timer)
+    if on_build is not None:
+        on_build(sys_)
     counters = _counters()
     for c in counters.values():
         c.launches = 0
@@ -856,6 +926,212 @@ def phase_reloc(sys_, frames):
     return res
 
 
+LOOP_STAGES = ("loop.detect", "loop.sim3", "loop.correct", "loop.essential",
+               "loop.gba.assemble", "loop.gba.chunk", "loop.gba.fetch", "loop.gba.apply")
+
+
+def _count_sim3_launches(sys_, tally):
+    """Wrap the loop closer's Sim3 dispatch to count the fused-match launches
+    it makes (the candidate program's two matches) and the evaluations."""
+    from os1_tpu_torch.ops.pallas_hamming import gated_match_cuda
+
+    lc = sys_.loop_closer
+    dispatch = lc._dispatch_sim3
+
+    def counted(snap):
+        g0 = gated_match_cuda.launches
+        out = dispatch(snap)
+        tally["sim3_evals"] += 1
+        tally["sim3_fused_launches"] += gated_match_cuda.launches - g0
+        return out
+
+    lc._dispatch_sim3 = counted
+
+
+def _scale_guard(lc) -> dict:
+    """The Sim3 scale guard's readings from the loop closer's log: per
+    evaluated candidate, Horn's scale, the LM's, and the verdicts without and
+    with the guard (``loop_closing.lm_scale_consistent``)."""
+    rows = [dict(kf=r[0], cand=r[1], n_match=r[2], n_inliers=r[3], n_total=r[4], s_horn=r[5],
+                 s_lm=r[6], ratio=r[6] / r[5], success_ref=r[7], success=r[8])
+            for r in lc.sim3_log]
+
+    def span(sel):
+        ratios = [r["ratio"] for r in rows if sel(r)]
+        return [min(ratios), max(ratios)] if ratios else None
+
+    return dict(evaluated=len(rows), accepted_ref=sum(r["success_ref"] for r in rows),
+                rejected_by_guard=sum(r["success_ref"] and not r["success"] for r in rows),
+                ratio_all=span(lambda r: True), ratio_accepted=span(lambda r: r["success"]),
+                ratio_20_inliers=span(lambda r: r["n_inliers"] >= 20),
+                rows=rows)
+
+
+def phase_loop(frames, poses, device="cuda"):
+    """bench.py's loop sequence in the shipped mode with loop closing on, twice
+    on fresh systems; the second pass with synchronised stage timers. Then one
+    global BA chunk on the second system's final map, timed, with its peak
+    device memory."""
+    from os1_tpu_torch.utils.profiling import StageTimer
+
+    passes = []
+    for k in range(2):
+        timer = StageTimer(sync=True) if k == 1 else None
+        tally = dict(sim3_evals=0, sim3_fused_launches=0)
+        _peak_mem(device, reset=True)
+        sys_, lat, ok, reads, launches = drive(
+            frames, mapping=True, device=device, timer=timer, shipped=True, loop=True,
+            on_build=lambda s, t=tally: _count_sim3_launches(s, t))
+        res, traj = summarize(sys_, lat, ok, reads, launches, poses, stretch_end=len(frames))
+        lc = sys_.loop_closer
+        first = res["init_frame"]
+        res.update(tally, peak_mem_bytes=_peak_mem(device), frames=len(frames),
+                   wall_fps=len(frames) / sys_.wall_s, sha256=_traj_sha(traj),
+                   ok_fraction=float(ok[first:].mean()) if first < len(ok) else 0.0,
+                   n_loops_closed=lc.n_loops_closed, loop_edges=[list(e) for e in lc.loop_edges],
+                   scale_guard=_scale_guard(lc),
+                   idle_after_flush=(not sys_._pending_frames and not sys_.coop.busy()
+                                     and not sys_.tracker._pending))
+        tag = f"loop pass {k + 1}"
+        _log_path(tag, res)
+        log(f"[{tag}] whole run incl. flush {sys_.wall_s:.3f}s = {res['wall_fps']:.3f} frames/s; "
+            f"OK fraction {res['ok_fraction']:.4f} from frame {first}; loss events "
+            f"{res['loss_log']}; loops closed {res['n_loops_closed']} (edges "
+            f"{res['loop_edges']}); {res['sim3_evals']} Sim3 candidate evaluations with "
+            f"{res['sim3_fused_launches']} fused-match launches; trajectory sha256 "
+            f"{res['sha256'][:16]}; idle after flush {res['idle_after_flush']}")
+        g = res["scale_guard"]
+        log(f"[{tag}] Sim3 scale guard: {g['evaluated']} candidates evaluated, "
+            f"{g['accepted_ref']} accepted by the reference's tests, {g['rejected_by_guard']} of "
+            f"them rejected by the guard; LM/Horn scale ratio over all {g['ratio_all']}, over "
+            f"those with >= 20 LM inliers {g['ratio_20_inliers']}, over the accepted "
+            f"{g['ratio_accepted']}")
+        for r in g["rows"]:
+            if r["n_inliers"] >= 20 or r["success_ref"]:
+                log(f"[{tag}]   kf {r['kf']} cand {r['cand']}: matches {r['n_match']}, LM inliers "
+                    f"{r['n_inliers']}, projected {r['n_total']}, scale Horn {r['s_horn']:.6f} "
+                    f"LM {r['s_lm']:.6f} (ratio {r['ratio']:.6f}), reference "
+                    f"{r['success_ref']}, guarded {r['success']}")
+        fails = []
+        if not res["ate"] <= GATE_ATE_LOOP:
+            fails.append(f"ATE {res['ate']} > {GATE_ATE_LOOP}")
+        if res["n_loops_closed"] < GATE_MIN_LOOPS:
+            fails.append(f"{res['n_loops_closed']} loops closed < {GATE_MIN_LOOPS}")
+        if not res["finite"]:
+            fails.append("non-finite or misshaped poses")
+        if res["sim3_fused_launches"] <= 0:
+            fails.append("no fused-match launch during the Sim3 evaluations")
+        if not res["idle_after_flush"]:
+            fails.append("the scheduler busy after flush")
+        _launch_gate(res, fails)
+        if fails:
+            raise RuntimeError(f"{tag} failed: " + "; ".join(fails))
+        passes.append((res, sys_, timer))
+    (r1, sys1, _), (r2, sys2, timer) = passes
+    host = sys1.timer
+    stages_host = {k: dict(total_s=host.totals[k], calls=host.counts[k],
+                           ms_per_call=host.totals[k] / host.counts[k] * 1e3)
+                   for k in LOOP_STAGES if host.counts.get(k)}
+    log("[loop] loop stages, ms a call (host clock, not synchronised, first pass): " + "; ".join(
+        f"{k} {v['ms_per_call']:.3f} ({v['calls']} calls)" for k, v in stages_host.items()))
+    log("[loop] stage table (synchronised stages, second pass):\n" + timer.report())
+    stages = {k: dict(total_s=timer.totals[k], calls=timer.counts[k],
+                      ms_per_call=timer.totals[k] / timer.counts[k] * 1e3)
+              for k in LOOP_STAGES if timer.counts.get(k)}
+    log("[loop] loop stages, ms a call (synchronised): " + "; ".join(
+        f"{k} {v['ms_per_call']:.3f} ({v['calls']} calls)" for k, v in stages.items()))
+    same = r1["sha256"] == r2["sha256"] and r1["states"] == r2["states"]
+    log(f"[loop] second pass vs first: same states {r1['states'] == r2['states']}, "
+        f"bit-identical trajectory {r1['sha256'] == r2['sha256']}")
+    if not same:
+        raise RuntimeError("loop: the two passes differ")
+    gba = _gba_chunk(sys2, device)
+    return dict(first=r1, second=r2, rerun_identical=same, stages=stages,
+                stages_host=stages_host, gba=gba,
+                all_stages={k: [timer.totals[k], timer.counts[k]] for k in timer.totals})
+
+
+def _gba_chunk(sys_, device):
+    """One 5-iteration global BA chunk on the system's map: device time by
+    CUDA events (the better of three) and the peak device memory over the
+    assembly, the chunk and the result."""
+    import torch
+
+    from os1_tpu_torch.optim import ba_begin, ba_iterate, ba_result
+    from os1_tpu_torch.pipeline.local_mapping import assemble_global_ba
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    prob, _ = assemble_global_ba(sys_.store, sys_.cfg, device)
+    state = ba_begin(prob)
+    times = []
+    for _ in range(3):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = ba_iterate(prob, state, 5)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    res = ba_result(prob, out)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    C, P = prob.cam_T.shape[0], prob.points.shape[0]
+    row = dict(cameras=C, points=P, observations=int(prob.obs_valid.sum()),
+               chunk_ms=min(times), chunk_ms_runs=times, peak_bytes=int(peak),
+               finite=bool(torch.isfinite(res.cam_T).all() and torch.isfinite(res.points).all()))
+    log(f"[loop] global BA on the final map: {C} cameras, {P} points, "
+        f"{row['observations']} observations; a 5-iteration chunk {row['chunk_ms']:.3f} ms "
+        f"(runs {', '.join(f'{t:.3f}' for t in times)}; CUDA events); peak device memory "
+        f"{peak} bytes above the {base} held before; finite {row['finite']}")
+    if not row["finite"]:
+        raise RuntimeError("loop: the global BA chunk gave non-finite values")
+    return row
+
+
+def phase_orbit_loop(frames, poses, device="cuda"):
+    """bench.py's orbit in bench.py's own configuration: the shipped mode with
+    loop closing on, one pass."""
+    _peak_mem(device, reset=True)
+    sys_, lat, ok, reads, launches = drive(frames, mapping=True, device=device, shipped=True,
+                                           loop=True)
+    res, traj = summarize(sys_, lat, ok, reads, launches, poses, stretch_end=len(frames))
+    res.update(peak_mem_bytes=_peak_mem(device), frames=len(frames),
+               wall_fps=len(frames) / sys_.wall_s,
+               n_loops_closed=sys_.loop_closer.n_loops_closed,
+               loop_edges=[list(e) for e in sys_.loop_closer.loop_edges])
+    _log_path("orbit-loop", res)
+    log(f"[orbit-loop] whole run incl. flush {sys_.wall_s:.3f}s = {res['wall_fps']:.3f} "
+        f"frames/s; loops closed {res['n_loops_closed']} (edges {res['loop_edges']}"
+        f"{'; a closure on the orbit is a finding' if res['n_loops_closed'] else ''}); ATE "
+        f"{res['ate']:.6f} with loop closing on against {ORBIT_ATE_LOOP_OFF} recorded with it off")
+    first = res["init_frame"]
+    fails = []
+    if first > GATE_INIT_BY:
+        fails.append(f"initialized at frame {first} > {GATE_INIT_BY}")
+    if ok[first:].mean() < GATE_OK_FRACTION:
+        fails.append(f"OK on {ok[first:].mean():.4f} of the frames from {first}")
+    if not res["finite"]:
+        fails.append("non-finite or misshaped poses")
+    if not res["ate"] <= GATE_ATE:
+        fails.append(f"ATE {res['ate']} > {GATE_ATE}")
+    _launch_gate(res, fails)
+    if fails:
+        raise RuntimeError("orbit-loop failed: " + "; ".join(fails))
+    return res
+
+
+def render_loop(n_frames):
+    from os1_tpu_torch.io import synthetic
+
+    t0 = time.perf_counter()
+    scene = synthetic.room_scene(seed=3)
+    poses = synthetic.loop_trajectory(n_frames)
+    frames = synthetic.render_sequence(scene, poses, BENCH_K, H, W)
+    log(f"[render] loop sequence: {n_frames} frames {H}x{W} in {time.perf_counter() - t0:.3f}s")
+    return frames, poses
+
+
 def render(n_frames):
     from os1_tpu_torch.io import synthetic
 
@@ -891,6 +1167,11 @@ def main() -> int:
     out["bow"] = phase_bow(frames)
     out["coop"], sys2 = phase_coop(frames, poses)
     out["reloc"] = phase_reloc(sys2, frames)
+    del sys2
+    out["orbit_loop"] = phase_orbit_loop(frames, poses)
+
+    frames, poses = render_loop(N_FRAMES_LOOP)
+    out["loop"] = phase_loop(frames, poses)
     out["seconds"] = time.perf_counter() - t_start
 
     if args.json:
@@ -898,7 +1179,7 @@ def main() -> int:
         with open(args.json, "w") as f:
             json.dump(out, f, indent=1)
 
-    launches = out["coop"]["first"]["launches"]
+    launches = out["loop"]["first"]["launches"]
     big = next(r for r in out["hamming"] if r["shape"] == [4096, 1024])
     fused = next(r for r in out["match"] if r["batch"] == 1 and r["shape"] == [4096, 1024])
     p1 = next(r for r in out["patches"]["p1"] if r["n"] == 1024)

@@ -10,10 +10,10 @@ Kernels written by hand for ``sm_90a`` live under ``csrc/`` and are built on
 first use into ``_build/``. A wrapper launches its kernel for a CUDA tensor or
 raises; it uses its plain PyTorch version only for a tensor on the CPU.
 
-The slice ported so far is synchronous tracking with local mapping:
-``System(cfg, enable_mapping=True, enable_loop_closing=False,
-pipelined=False).track_monocular`` (mapping off runs too). Every entry point
-runs on the card unless the caller passes ``device="cpu"``.
+The slice ported so far is the shipped mode, ``System(cfg, pipelined=True,
+coop_mapping=True).track_monocular`` (pipelined tracking, cooperative local
+mapping and loop closing, relocalization), and the synchronous modes. Every
+entry point runs on the card unless the caller passes ``device="cpu"``.
 """
 
 __version__ = "0.1.0"

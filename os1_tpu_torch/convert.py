@@ -1,5 +1,6 @@
 """State carried across from the JAX package (the port has no weights: its
-state is calibration, extractor tables, frames and the map).
+state is calibration, extractor tables, frames, the map, the place-recognition
+database and the loop closer's memory).
 
 Each function takes plain numpy arrays, or any object whose fields convert
 with ``np.asarray`` (such as the reference package's NamedTuples and
@@ -17,6 +18,7 @@ from .geometry.camera import Camera
 from .map.mirror import to_device
 from .map.store import MapConfig, MapStore
 from .pipeline.frame import FrameData, pack_host
+from .vocab.database import KeyFrameDatabase, SparseBow
 
 
 def _device(device) -> torch.device:
@@ -70,3 +72,24 @@ def store_from_numpy(src) -> MapStore:
 def to_torch(a, device=None) -> torch.Tensor:
     """Any numpy-convertible array -> torch on ``device`` (uint32 -> int32 bits)."""
     return to_device(np.asarray(a), _device(device))
+
+
+def database_from_numpy(src, vocab) -> KeyFrameDatabase:
+    """Port KeyFrameDatabase over ``vocab`` holding the per-keyframe BoW
+    vectors of a database with the reference's fields (``bows``: per slot
+    None or (words, weights); ``active``)."""
+    db = KeyFrameDatabase(vocab, len(src.bows))
+    for kf, bow in enumerate(src.bows):
+        if bow is not None and bool(np.asarray(src.active)[kf]):
+            db.add(kf, SparseBow(words=np.array(bow[0], np.int32),
+                                 weights=np.array(bow[1], np.float32)))
+    return db
+
+
+def copy_loop_state(src, dst) -> None:
+    """Carry a loop closer's memory (``loop_edges``, ``consistent_groups``,
+    ``last_loop_kf``, ``n_loops_closed``) onto the port's LoopCloser ``dst``."""
+    dst.loop_edges = [(int(a), int(b)) for a, b in src.loop_edges]
+    dst.consistent_groups = [({int(k) for k in g}, int(c)) for g, c in src.consistent_groups]
+    dst.last_loop_kf = int(src.last_loop_kf)
+    dst.n_loops_closed = int(src.n_loops_closed)

@@ -131,8 +131,10 @@ def from_Rt(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     R = R.expand(batch + (3, 3))
     t = t.expand(batch + (3,))
     top = torch.cat([R, t[..., None]], dim=-1)
-    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=R.dtype, device=R.device)
-    bottom = bottom.expand(batch + (4,))[..., None, :]
+    # [0, 0, 0, 1] made on the device: a row built from host data would be a
+    # blocking host-to-device copy on a card, a stream synchronisation.
+    zero = torch.zeros_like(t[..., None, :])
+    bottom = torch.cat([zero, torch.ones_like(zero[..., :1])], dim=-1)
     return torch.cat([top, bottom], dim=-2)
 
 

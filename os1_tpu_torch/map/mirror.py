@@ -30,13 +30,15 @@ _KF_ROWS = ("kf_feat_valid", "kf_obs_point")
 
 
 def to_device(a: np.ndarray, device) -> torch.Tensor:
-    """numpy -> torch on ``device``; uint32 arrives as int32 with the same bits."""
+    """numpy -> a new torch tensor on ``device`` (never a view of ``a``, on
+    the CPU too: a mirror row written on the device must not write the host
+    store); uint32 arrives as int32 with the same bits."""
     a = np.ascontiguousarray(a)
     if not a.flags.writeable:  # torch.from_numpy wants writable memory
         a = a.copy()
     if a.dtype == np.uint32:
         a = a.view(np.int32)
-    return torch.from_numpy(a).to(device)
+    return torch.from_numpy(a).to(device, copy=True)
 
 
 def _row_changed(a: np.ndarray, b: np.ndarray) -> np.ndarray:
@@ -58,15 +60,25 @@ class DeviceMirror:
         setattr(self, name, to_device(getattr(self.store, name), self.device))
 
     def refresh(self) -> None:
-        """Full re-publish of every mirrored array from the host store."""
+        """Full re-publish of every mirrored array from the host store. The
+        device-published rows of keyframes the store has not materialized yet
+        are kept: the store holds zeros there, and a keyframe that the
+        tracker uses as its reference would otherwise lose its features (after
+        a loop correction, every frame until the keyframe's event runs)."""
         st = self.store
+        keep = np.array(sorted(k for k in getattr(self, "_pending_rows", ())
+                               if st.kf_valid[k] and not st.kf_feat_valid[k].any()), np.int64)
+        fields = _KF_STATIC + ("kf_feat_valid",)
+        saved = {}
+        if len(keep):
+            rows = to_device(keep, self.device)
+            saved = {f: getattr(self, f)[rows].clone() for f in fields}
         for f in _PT_FIELDS + ("kf_T", "kf_valid") + _KF_STATIC + _KF_ROWS:
             self._publish(f)
         self._shadow = {f: getattr(st, f).copy() for f in _PT_FIELDS + _KF_ROWS}
-        # A wholesale publish clobbers device-published pending rows with the
-        # store's zeros; their features stay excluded (kf_feat_valid False)
-        # until the store materializes them and re-publishes the row.
-        self._pending_rows = set()
+        for f, v in saved.items():
+            getattr(self, f)[rows] = v
+        self._pending_rows = set(keep.tolist())
         self.version += 1
 
     def _scatter_rows(self, fields, idx: np.ndarray) -> None:

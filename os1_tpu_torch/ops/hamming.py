@@ -8,7 +8,9 @@ support is partial. Convert at the numpy edge with ``.view(np.int32)`` /
 ``.view(np.uint32)``.
 
 :func:`hamming_matrix` is the plain version of the table kernel in
-``ops/pallas_hamming.py``: an exact integer SWAR popcount in int64.
+``ops/pallas_hamming.py``: the +-1 product form, ``d = (256 - s_a . s_b) / 2``
+with ``s = 1 - 2 * bit`` in float32, one matrix product (exact: every partial
+sum is an integer of magnitude <= 256).
 """
 from __future__ import annotations
 
@@ -58,15 +60,14 @@ def hamming_pairwise(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return _popcount32(x).sum(-1).to(torch.int32)
 
 
+def _signs(words: torch.Tensor) -> torch.Tensor:
+    """[..., 8] int32 -> [..., 256] float32, +1 for a 0 bit and -1 for a 1."""
+    return 1.0 - 2.0 * unpack_bits(words).to(torch.float32)
+
+
 def hamming_matrix(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Packed [..., N, 8] x [..., M, 8] int32 -> [..., N, M] int32 Hamming
-    distances (leading dimensions broadcast).
-
-    Plain version: word by word, so the int64 intermediate is [..., N, M] and
-    not [..., N, M, 8]."""
-    a64 = a.to(torch.int64)
-    b64 = b.to(torch.int64)
-    out = 0
-    for w in range(WORDS):
-        out = out + _popcount32(torch.bitwise_xor(a64[..., :, None, w], b64[..., None, :, w]))
-    return out.to(torch.int32)
+    distances (leading dimensions broadcast), by one float32 matrix product
+    of the +-1 bit vectors (the package keeps TF32 off, so it is exact)."""
+    dot = _signs(a) @ _signs(b).transpose(-1, -2)
+    return ((BITS - dot) * 0.5).to(torch.int32)

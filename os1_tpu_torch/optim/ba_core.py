@@ -59,25 +59,32 @@ def _zero_where_not(mask, x):
     return torch.where(mask, x, torch.zeros_like(x))
 
 
+def _residuals_and_cost(prob: BAProblem, Tcw, X, active):
+    """Masked residuals, chi2 and the robust (Huber) cost."""
+    r = _zero_where_not(active[..., None], rp.residual(Tcw, X, prob.obs_uv, prob.intr))
+    inv_s2 = 1.0 / torch.clamp(prob.obs_sigma2, min=1e-8)
+    chi2 = torch.sum(r * r, dim=-1) * inv_s2
+    d2 = rp.HUBER_MONO**2
+    rho = torch.where(chi2 <= d2, chi2, 2.0 * torch.sqrt(chi2 * d2) - d2)
+    return r, chi2, inv_s2, torch.sum(_zero_where_not(active, rho))
+
+
 def _per_obs_terms(prob: BAProblem, cam_T, points, active):
     Tcw = cam_T[prob.obs_cam]  # [P, O, 4, 4]
     X = points[:, None, :].expand(prob.obs_uv.shape[:2] + (3,))
-    r = rp.residual(Tcw, X, prob.obs_uv, prob.intr)
+    r, chi2, inv_s2, cost = _residuals_and_cost(prob, Tcw, X, active)
     J_c, J_p = rp.jacobians(Tcw, X, prob.intr)
-    r = _zero_where_not(active[..., None], r)
     J_c = _zero_where_not(active[..., None, None], J_c)
     J_p = _zero_where_not(active[..., None, None], J_p)
-    inv_s2 = 1.0 / torch.clamp(prob.obs_sigma2, min=1e-8)
-    chi2 = torch.sum(r * r, dim=-1) * inv_s2
     w = _zero_where_not(active, rp.huber_weight(chi2, rp.HUBER_MONO) * inv_s2)
-    d2 = rp.HUBER_MONO**2
-    rho = torch.where(chi2 <= d2, chi2, 2.0 * torch.sqrt(chi2 * d2) - d2)
-    cost = torch.sum(_zero_where_not(active, rho))
     return r, J_c, J_p, w, cost
 
 
 def _cost_only(prob, cam_T, points, active):
-    return _per_obs_terms(prob, cam_T, points, active)[4]
+    """The robust cost alone (no Jacobians): the same arithmetic as
+    :func:`_per_obs_terms`'s cost."""
+    X = points[:, None, :].expand(prob.obs_uv.shape[:2] + (3,))
+    return _residuals_and_cost(prob, cam_T[prob.obs_cam], X, active)[3]
 
 
 def assemble_reduced(prob: BAProblem, cam_T, points, active, lam):

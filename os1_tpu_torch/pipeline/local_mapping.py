@@ -12,8 +12,14 @@ interleave them with tracking; :meth:`LocalMapper.process` drains them in
 order. The cooperative hooks are the BA abort flag, checked between the LM
 chunks, and the queue-pressure gate of fusion and local BA.
 
-Not ported: the worker threads, global BA, the mesh-sharded BA back end and
-the host-upload (mirror-less) paths.
+Global BA, which loop closing runs after every corrected loop, is here too:
+:func:`assemble_global_ba` snapshots the whole map from the host store,
+:func:`apply_global_ba` writes the solve back and carries its correction to
+the keyframes and points created meanwhile, :func:`global_bundle_adjustment`
+is both in one call.
+
+Not ported: the worker threads, the mesh-sharded BA back end and the
+host-upload (mirror-less) paths.
 """
 from __future__ import annotations
 
@@ -39,6 +45,146 @@ FAR_SVDINF = 3  # quasi-infinite solve (svdInf)
 # Finite triangulations with a parallax cosine above this are umbralCosBajo
 # (the reference's viewer trackbar, Viewer.cc:133; 0.9998 disables the band).
 FAR_COS_USER = 0.9998
+
+
+def assemble_global_ba(store: MapStore, cfg: SlamConfig, device):
+    """Snapshot the full-map BA problem (Optimizer::GlobalBundleAdjustemnt,
+    Optimizer.cc:41-46: every live keyframe, every non-far point with two or
+    more observations) onto ``device``. Returns (prob, meta), or None when
+    the map is too small. The problem has the map's exact sizes (the
+    reference pads them to compile buckets).
+
+    Keyframes whose features are still on the device (not materialized) are
+    left out, like keyframes made during the solve: :func:`apply_global_ba`
+    moves them with their spanning-tree parent. (The reference keeps them as
+    fixed cameras, so they stay put while their points move.)"""
+    cams = [int(k) for k in np.nonzero(store.kf_valid & store.kf_feat_valid.any(axis=1))[0]]
+    if len(cams) < 2:
+        return None
+    C = len(cams)
+    cam_slot = {c: i for i, c in enumerate(cams)}
+    pts = np.nonzero(store.pt_valid & ~store.pt_far & (store.pt_n_obs >= 2))[0]
+    if len(pts) < 20:
+        return None
+
+    okf = store.pt_obs_kf[pts]
+    oft = store.pt_obs_feat[pts]
+    lookup = np.full(store.cfg.max_keyframes, -1, np.int64)
+    lookup[cams] = np.arange(C)
+    okf_c = np.clip(okf, 0, None)
+    oft_c = np.clip(oft, 0, None)
+    slots = lookup[okf_c]
+    # Observations of keyframes whose feature arrays are not yet materialized
+    # stay out (their zero kf_xy rows would read as measurements at pixel
+    # (0, 0)): the keyframes are not cameras of the problem, and their
+    # kf_feat_valid rows are all False.
+    valid = (okf >= 0) & (slots >= 0) & store.kf_feat_valid[okf_c, oft_c]
+
+    fixed = np.zeros(C, bool)
+    # Gauge: the two oldest keyframes by insertion age (the reference fixes
+    # keyframe 0 only; the second pins the monocular scale, as the reference
+    # package measured a post-loop GBA rescale the map without it).
+    by_age = sorted(cams, key=lambda c: int(store.kf_seq[c]))
+    fixed[cam_slot[by_age[0]]] = True
+    fixed[cam_slot[by_age[1]]] = True
+    # A camera with (almost) no observations in the problem is unconstrained:
+    # it stays at its pose.
+    fixed |= np.bincount(slots[valid].ravel(), minlength=C) < 6
+
+    d = lambda a: to_device(np.ascontiguousarray(a), device)  # noqa: E731
+    prob = BAProblem(
+        cam_T=d(store.kf_T[cams].astype(np.float32)), cam_fixed=d(fixed),
+        points=d(store.pt_xyz[pts].astype(np.float32)), point_valid=d(np.ones(len(pts), bool)),
+        obs_cam=d(np.where(valid, slots, 0)), obs_uv=d(store.kf_xy[okf_c, oft_c]),
+        obs_sigma2=d(cfg.sigma2_table[store.kf_octave[okf_c, oft_c]]), obs_valid=d(valid),
+        intr=torch.as_tensor(cfg.intr, device=device))
+    meta = dict(cams=cams, cam_slot=cam_slot, pts=pts, okf=okf, valid=valid, fixed=fixed,
+                old_T=store.kf_T[cams].copy(), epoch=store.epoch,
+                cam_seq={c: int(store.kf_seq[c]) for c in cams})
+    return prob, meta
+
+
+def apply_global_ba(store: MapStore, cfg: SlamConfig, res, meta) -> None:
+    """Write a global BA's result (numpy ``cam_T``, ``points``,
+    ``obs_inlier``) back, and carry the correction through the spanning tree
+    to the keyframes and points created while it solved (the reference's
+    RunGlobalBundleAdjustment tail, LoopClosing.cc:690-750)."""
+    if store.epoch != meta["epoch"]:
+        return
+    cams, cam_slot, fixed = meta["cams"], meta["cam_slot"], meta["fixed"]
+    pts, okf = meta["pts"], meta["okf"]
+    # A keyframe's identity is (slot, kf_seq): a slot culled during the solve
+    # may hold a new keyframe, which must not take the old one's pose.
+    cam_seq = meta["cam_seq"]
+    still = {c for c in cams if store.kf_valid[c] and int(store.kf_seq[c]) == cam_seq[c]}
+    in_prob_kf = np.zeros(store.cfg.max_keyframes, bool)
+    in_prob_kf[list(still)] = True
+    old_pose = {c: meta["old_T"][i] for c, i in cam_slot.items() if c in still}
+    new_T = np.asarray(res.cam_T)
+
+    # Keyframes inserted during the solve: the child's pose composed with its
+    # parent's correction (LoopClosing.cc:690-720), in ascending age, since
+    # parents predate children.
+    corrected = {c: new_T[i] for c, i in cam_slot.items() if c in still}
+    live = np.nonzero(store.kf_valid)[0]
+    live = live[np.argsort(store.kf_seq[live], kind="stable")]
+    for k in live:
+        k = int(k)
+        if in_prob_kf[k]:
+            continue
+        p = int(store.kf_parent[k])
+        if p < 0 or (p not in corrected) or (p not in old_pose):
+            continue
+        T_rel = store.kf_T[k] @ np.linalg.inv(old_pose[p])
+        corrected[k] = (T_rel @ corrected[p]).astype(np.float32)
+        old_pose[k] = store.kf_T[k].copy()
+
+    for k, T in corrected.items():
+        if not (k in cam_slot and fixed[cam_slot[k]]) and store.kf_valid[k]:
+            store.kf_T[k] = T
+
+    # Points in the problem take their solved positions; points created during
+    # the solve move with their first observer's correction
+    # (LoopClosing.cc:724-748), one affine transform per observer.
+    alive = store.pt_valid[pts]
+    store.pt_xyz[pts[alive]] = np.asarray(res.points)[: len(pts)][alive]
+    in_prob_pt = np.zeros(store.cfg.max_points, bool)
+    in_prob_pt[pts] = True
+    others = np.nonzero(store.pt_valid & ~in_prob_pt)[0]
+    if len(others):
+        refs = store.pt_obs_kf[others, 0]
+        for ref in np.unique(refs):
+            ref = int(ref)
+            if ref < 0 or ref not in corrected or ref not in old_pose:
+                continue
+            sel = others[refs == ref]
+            T_old, T_new = old_pose[ref], corrected[ref]
+            xc = store.pt_xyz[sel] @ T_old[:3, :3].T + T_old[:3, 3]
+            store.pt_xyz[sel] = (xc - T_new[:3, 3]) @ T_new[:3, :3]
+
+    # Outlier observations erased, only against keyframes whose identity
+    # survived.
+    inl = np.asarray(res.obs_inlier)[: len(pts)]
+    okf_still = np.isin(okf, list(still)) if still else np.zeros_like(okf, bool)
+    out_i, out_s = np.nonzero(meta["valid"] & ~inl & alive[:, None] & okf_still)
+    store.remove_observations(pts[out_i], okf[out_i, out_s])
+    dead = pts[alive & (store.pt_n_obs[pts] < 2)]
+    if len(dead):
+        store.cull_points(dead)
+
+
+def global_bundle_adjustment(store: MapStore, cfg: SlamConfig, device, iters: int = 20,
+                             reads: HostReads | None = None) -> None:
+    """Synchronous full-map BA: assemble, ``iters`` LM iterations, apply."""
+    work = assemble_global_ba(store, cfg, device)
+    if work is None:
+        return
+    prob, meta = work
+    res = ba_result(prob, ba_iterate(prob, ba_begin(prob), iters))
+    reads = reads if reads is not None else HostReads()
+    res = res._replace(**dict(zip(("cam_T", "points", "obs_inlier"),
+                                  reads.numpy_all((res.cam_T, res.points, res.obs_inlier)))))
+    apply_global_ba(store, cfg, res, meta)
 
 
 @dataclass

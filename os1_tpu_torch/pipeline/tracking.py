@@ -87,6 +87,11 @@ class Tracker:
     # SetAcceptKeyFrames / InterruptBA protocol, Tracking.cc:719,755).
     mapping_idle = None  # callable() -> bool; None: always idle
     interrupt_ba = None  # callable() -> None
+    # callable() -> bool: True while a loop closure is in flight, which pauses
+    # keyframe insertion (the reference's mapper-stopped gate, Tracking.cc:719).
+    # Wired by System to LoopCloser.closing_active, which, as in the reference
+    # package, nothing raises yet.
+    loop_closing_active = None
     # Localization-only mode (mbOnlyTracking): no keyframes, observations or
     # point statistics are written (Tracking.cc:699-700).
     only_tracking: bool = False
@@ -542,6 +547,8 @@ class Tracker:
             z_ref = st.kf_T[self.ref_kf][2, :3]
             c4 = float(np.dot(z_cur, z_ref)) < float(np.cos(np.deg2rad(th.kf_view_angle_deg)))
         if not (c1 or c2 or c3 or c4):
+            return False
+        if self.loop_closing_active is not None and self.loop_closing_active():
             return False
         # Backpressure (Tracking.cc:719,749-760): a keyframe goes in only while
         # local mapping accepts one; otherwise interrupt its BA and retry.

@@ -1,8 +1,8 @@
 """The port stands alone: ``os1_tpu_torch`` imports neither JAX nor the JAX
 package, at import time or while it runs frames in the shipped mode
-(pipelined, cooperative mapping, the BoW database and the relocalizer), and
-its System refuses the options outside the ported slice and runs on the CPU
-only when asked to. No JAX is needed to run this file."""
+(pipelined, cooperative mapping, loop closing, the BoW database and the
+relocalizer), and its System refuses the options outside the ported slice and
+runs on the CPU only when asked to. No JAX is needed to run this file."""
 import ast
 import os
 import subprocess
@@ -18,10 +18,15 @@ import sys
 import numpy as np
 import os1_tpu_torch
 import os1_tpu_torch.ops.patches
+import os1_tpu_torch.geometry.sim3
+import os1_tpu_torch.optim.pose_graph
+import os1_tpu_torch.optim.sim3_opt
 import os1_tpu_torch.pipeline.local_mapping
+import os1_tpu_torch.pipeline.loop_closing
 import os1_tpu_torch.pipeline.relocalization
 import os1_tpu_torch.pipeline.workers
 import os1_tpu_torch.solvers.pnp
+import os1_tpu_torch.solvers.sim3_solver
 import os1_tpu_torch.utils.transfer
 import os1_tpu_torch.vocab.database
 import os1_tpu_torch.vocab.dbow2
@@ -39,8 +44,8 @@ poses = synthetic.orbit_trajectory(8, advance=0.08)
 cfg = SlamConfig(camera=Camera.make(130.0, 130.0, 80.0, 60.0, width=W, height=H),
                  orb=OrbConfig(height=H, width=W, n_features=256, n_levels=3),
                  map=MapConfig(max_keyframes=8, max_points=512, n_features=256))
-s = System(cfg, enable_mapping=True, enable_loop_closing=False, pipelined=True,
-           coop_mapping=True, device="cpu")
+s = System(cfg, enable_mapping=True, pipelined=True, coop_mapping=True, device="cpu")
+assert s.coop.loop_steps is not None
 states = [s.track_monocular(img)[0] for img in
           synthetic.render_sequence(synthetic.default_scene(seed=3), poses[:6], K, H, W)]
 for img in np.zeros((3, H, W), np.float32):  # black frames: lost, then relocalization
@@ -97,8 +102,8 @@ def _tiny_config():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(enable_mapping=True, enable_loop_closing=True, pipelined=True, coop_mapping=True),
-    dict(enable_mapping=False, enable_loop_closing=True),
+    dict(enable_mapping=True, enable_loop_closing=True, pipelined=True, async_mapping=True),
+    dict(enable_mapping=True, enable_loop_closing=True, coop_mapping=True, distributed=True),
     dict(enable_mapping=True, enable_loop_closing=False, pipelined=True, async_mapping=True),
     dict(enable_mapping=True, enable_loop_closing=False, coop_mapping=True, distributed=True),
     dict(enable_mapping=False, enable_loop_closing=False, async_mapping=True),
@@ -119,13 +124,18 @@ def test_system_refuses_options_outside_the_slice(kw):
     dict(enable_mapping=False, pipelined=True, coop_mapping=True),
 ])
 def test_system_accepts_the_ported_modes(kw):
+    """Loop closing on, the default, in every ported mode."""
     from os1_tpu_torch.pipeline import System
 
-    s = System(_tiny_config(), enable_loop_closing=False, device="cpu", **kw)
+    s = System(_tiny_config(), device="cpu", **kw)
     assert s.tracker.pipelined == kw.get("pipelined", False)
     assert (s.coop is not None) == kw.get("coop_mapping", False)
     assert s.tracker.relocalizer is s.relocalizer and s.relocalizer.db is s.db
     assert s.mapper.on_cull_keyframe == s.db.erase
+    assert s.loop_closer.db is s.db and s.loop_closer.store is s.store
+    assert s.tracker.loop_closing_active() is False
+    if s.coop is not None:
+        assert s.coop.loop_steps is not None
 
 
 def test_persistence_is_refused():
@@ -151,4 +161,6 @@ def test_system_without_a_device_needs_a_card(monkeypatch):
         System(cfg, enable_loop_closing=False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         System(cfg, pipelined=True, coop_mapping=True, enable_loop_closing=False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        System(cfg, pipelined=True, coop_mapping=True)
     assert System(cfg, enable_loop_closing=False, device="cpu").device.type == "cpu"
