@@ -56,7 +56,20 @@ fails (non-zero exit, no final result line) if any phase fails:
  11. orbit with loop closing on: bench.py's own configuration (the shipped
      mode, loop closing on) over the 300-frame orbit, one pass, gated on ATE
      <= 0.2 and OK on every frame from the first OK one; a loop closed there
-     is reported, not gated.
+     is reported, not gated;
+ 12. osmap, Osmap persistence on the [loop] first pass's map (A) and the
+     [orbit-loop] system's (O): A saved with options 0, FEATURES_FILE_DELIMITED
+     and ONLY_MAPPOINTS_FEATURES and O with 0 (header counts = live counts,
+     nothing pending; bytes and ms printed); A reloaded into a bare MapStore,
+     exactly on the live slots (less the points with no observation, which
+     the load's rebuild culls), in both layouts; A loaded into a fresh shipped
+     system, LOST, then loop frames 150-209 replayed: OK within 10 frames, at
+     the [loop] pass's pose (0.05 rad, 0.2 units), OK on 90% of the frames
+     after, fused-match launches on the LOST frames; session B (a fresh shipped
+     system over loop frames 180-299) saved and merged into a fresh load of A:
+     aligned, more keyframes, finite, the joint keyframe ATE under 5% of the
+     path, fused-match launches in the Sim3 evaluations; O merged into a fresh
+     load of A: rolled back, the counts unchanged.
 
 Every tracking path runs the fused match kernel (every matcher, one launch a
 call; relocalization's five candidates are one 5-lane launch, checked in
@@ -76,8 +89,10 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -105,6 +120,11 @@ GATE_MIN_LOOPS = 1  # bench.py GATE_MIN_LOOPS
 # The shipped mode's orbit ATE with loop closing off, as recorded on an NVIDIA H100
 # 80GB HBM3 at 700 W.
 ORBIT_ATE_LOOP_OFF = 0.195493
+# [osmap]: the loop frames replayed after a load, session B's span and the merge gate.
+OSMAP_RESUME = (150, 210)
+OSMAP_B_SPANS = ((180, 300), (180, 260), (180, 230))  # session B, shortened if A + B overflow
+GATE_RESUME_OK_AFTER = 0.9  # OK share of the replayed frames after the first OK one
+GATE_MERGE_ATE = 0.05  # of the path length (tests/test_merge.py:56-64)
 HAMMING_SHAPES = ((1024, 1024), (4096, 1024), (1000, 777))
 # Fused match problems (batch, N, M, A shared, dense gate): the motion and
 # local-map searches, a ragged one, the smallest, K9's fusion lanes and K8's
@@ -971,7 +991,7 @@ def phase_loop(frames, poses, device="cuda"):
     """bench.py's loop sequence in the shipped mode with loop closing on, twice
     on fresh systems; the second pass with synchronised stage timers. Then one
     global BA chunk on the second system's final map, timed, with its peak
-    device memory."""
+    device memory. Returns the numbers and the first pass's system."""
     from os1_tpu_torch.utils.profiling import StageTimer
 
     passes = []
@@ -1048,7 +1068,7 @@ def phase_loop(frames, poses, device="cuda"):
     gba = _gba_chunk(sys2, device)
     return dict(first=r1, second=r2, rerun_identical=same, stages=stages,
                 stages_host=stages_host, gba=gba,
-                all_stages={k: [timer.totals[k], timer.counts[k]] for k in timer.totals})
+                all_stages={k: [timer.totals[k], timer.counts[k]] for k in timer.totals}), sys1
 
 
 def _gba_chunk(sys_, device):
@@ -1091,7 +1111,7 @@ def _gba_chunk(sys_, device):
 
 def phase_orbit_loop(frames, poses, device="cuda"):
     """bench.py's orbit in bench.py's own configuration: the shipped mode with
-    loop closing on, one pass."""
+    loop closing on, one pass. Returns the numbers and the system."""
     _peak_mem(device, reset=True)
     sys_, lat, ok, reads, launches = drive(frames, mapping=True, device=device, shipped=True,
                                            loop=True)
@@ -1118,7 +1138,234 @@ def phase_orbit_loop(frames, poses, device="cuda"):
     _launch_gate(res, fails)
     if fails:
         raise RuntimeError("orbit-loop failed: " + "; ".join(fails))
+    return res, sys_
+
+
+def _rot_t_err(T, ref):
+    dR = T[:3, :3] @ ref[:3, :3].T
+    return (float(np.arccos(np.clip((np.trace(dR) - 1) / 2, -1, 1))),
+            float(np.linalg.norm(T[:3, 3] - ref[:3, 3])))
+
+
+def _timed(device, fn):
+    """(fn(), ms) on the host clock, the card synchronised before and after."""
+    _sync(device)
+    t0 = time.perf_counter()
+    out = fn()
+    _sync(device)
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _save(sys_, base, options, device):
+    header, ms = _timed(device, lambda: sys_.save_map(base, options))
+    st = sys_.store
+    sizes = {ext: os.path.getsize(base + ext)
+             for ext in (".yaml", ".mappoints", ".keyframes", ".features")}
+    ok = (header["nKeyframes"] == st.n_keyframes() and header["nMappoints"] == st.n_points()
+          and not sys_._pending_frames)
+    return dict(options=options, ms=ms, bytes=sizes, keyframes=header["nKeyframes"],
+                points=header["nMappoints"], features=header["nFeatures"], counts_match=ok)
+
+
+def _session(frames, lo, hi, device):
+    """A fresh shipped system over loop frames lo..hi-1, timestamps from the
+    global frame index, flushed."""
+    sys_ = build_system(device, mapping=True, shipped=True, loop=True)
+    ok = []
+    for i in range(lo, hi):
+        state, _ = sys_.track_monocular(frames[i], timestamp=i / 30.0)
+        ok.append(state.name == "OK")
+    sys_.flush()
+    return sys_, np.array(ok)
+
+
+def _resume(base, frames, recorded, device):
+    """Load map A into a fresh shipped system and replay OSMAP_RESUME's frames:
+    per frame the state and the fused-match launches made while it was LOST."""
+    from os1_tpu_torch.pipeline import TrackingState
+
+    sys_ = build_system(device, mapping=True, shipped=True, loop=True)
+    counters = _counters()
+    for c in counters.values():
+        c.launches = 0
+    _, load_ms = _timed(device, lambda: sys_.load_map(base))
+    lost_after_load = sys_.state == TrackingState.LOST
+    states, lost_launches, first_ok, Tcw_first = [], 0, None, None
+    lo, hi = OSMAP_RESUME
+    for i in range(lo, hi):
+        was_lost = sys_.state == TrackingState.LOST
+        g0 = counters["gated_match_cuda"].launches
+        state, Tcw = sys_.track_monocular(frames[i], timestamp=i / 30.0)
+        if was_lost:
+            lost_launches += counters["gated_match_cuda"].launches - g0
+        states.append(state == TrackingState.OK)
+        if first_ok is None and state == TrackingState.OK:
+            first_ok, Tcw_first = i, Tcw
+    sys_.flush()
+    _sync(device)
+    res = dict(load_ms=load_ms, lost_after_load=lost_after_load, first_ok=first_ok,
+               lost_fused_launches=lost_launches,
+               states="".join("O" if s else "." for s in states),
+               launches={k: c.launches for k, c in counters.items()})
+    if first_ok is not None:
+        res["rot_err_rad"], res["t_err"] = _rot_t_err(Tcw_first, recorded[first_ok])
+        after = states[first_ok - lo + 1:]
+        res["ok_after"] = float(np.mean(after)) if after else 0.0
     return res
+
+
+def _merge(base_a, base_b, device, tally):
+    sys_ = build_system(device, mapping=True, shipped=True, loop=True)
+    _count_sim3_launches(sys_, tally)
+    sys_.load_map(base_a)
+    st = sys_.store
+    n_kf, n_pt = st.n_keyframes(), st.n_points()
+    gba0 = sys_.timer.totals.get("merge.gba", 0.0)
+    merged, ms = _timed(device, lambda: sys_.merge_session(base_b))
+    return sys_, merged, ms, (sys_.timer.totals.get("merge.gba", 0.0) - gba0) * 1e3, n_kf, n_pt
+
+
+def phase_osmap(sys_a, sys_o, frames, poses, device="cuda"):
+    """Osmap persistence on the card. Map A is the [loop] first pass's system,
+    map O the [orbit-loop] system's (another scene). Saves A (three layouts)
+    and O; reloads A into a bare store, exactly; loads A into a fresh shipped
+    system and replays loop frames OSMAP_RESUME (LOST after the load, then
+    relocalization gated as [reloc]); merges session B (a fresh shipped
+    system over the loop's frames 180-299) into a fresh load of A (gated on
+    the alignment, the ATE against ground truth and the Sim3's fused
+    launches); and merges O into a fresh load of A, which must roll back."""
+    from os1_tpu_torch.io import osmap_io, synthetic
+    from os1_tpu_torch.map.store import MapStore
+
+    tmp = tempfile.mkdtemp(prefix="osmap_")
+    try:
+        fails, res = [], {}
+        base = {k: os.path.join(tmp, k) for k in ("a", "a_delim", "a_mp", "o", "b")}
+        res["save"] = {
+            "A": _save(sys_a, base["a"], 0, device),
+            "A delimited": _save(sys_a, base["a_delim"], osmap_io.FEATURES_FILE_DELIMITED, device),
+            "A mappoint features": _save(sys_a, base["a_mp"], osmap_io.ONLY_MAPPOINTS_FEATURES,
+                                         device),
+            "O": _save(sys_o, base["o"], 0, device)}
+        for tag, r in res["save"].items():
+            log(f"[osmap] save {tag} (options {r['options']}): {r['keyframes']} keyframes, "
+                f"{r['points']} points, {r['features']} features in {r['ms']:.3f} ms; bytes "
+                f"{r['bytes']}; header counts = live counts and nothing pending "
+                f"{r['counts_match']}")
+            if not r["counts_match"]:
+                fails.append(f"save {tag}: header counts or pending keyframes")
+
+        st = sys_a.store
+        live = np.nonzero(st.kf_valid)[0]
+        # The load's rebuild culls points left with no observation (Osmap::
+        # rebuild); every other live point comes back.
+        kept = st.pt_valid & (st.pt_n_obs > 0)
+        pts = np.nonzero(kept)[0]
+        res["reload"] = {}
+        for tag in ("a", "a_delim"):
+            bare = MapStore(st.cfg)
+            _, ms = _timed(device, lambda: osmap_io.load_map(bare, sys_a.cfg, base[tag]))
+            _, rebuild_ms = _timed(device, lambda: osmap_io.rebuild(bare, sys_a.cfg))
+            exact = bool(np.array_equal(bare.kf_valid, st.kf_valid)
+                         and np.array_equal(bare.pt_valid, kept)
+                         and all(np.array_equal(getattr(bare, f)[live], getattr(st, f)[live])
+                                 for f in ("kf_T", "kf_obs_point", "kf_feat_valid", "kf_xy",
+                                           "kf_desc"))
+                         and np.array_equal(bare.pt_xyz[pts], st.pt_xyz[pts]))
+            orphans = int(st.pt_valid.sum() - kept.sum())
+            res["reload"][tag] = dict(load_ms=ms, rebuild_ms=rebuild_ms, exact=exact,
+                                      orphans_culled=orphans)
+            log(f"[osmap] reload {tag} into a bare MapStore: {ms:.3f} ms with the rebuild (a "
+                f"rebuild alone {rebuild_ms:.3f} ms); kf_T, pt_xyz, kf_obs_point, kf_feat_valid, "
+                f"kf_xy, kf_desc equal on the live slots, less the {orphans} points with no "
+                f"observation that the rebuild culls: {exact}")
+            if not exact:
+                fails.append(f"reload {tag} differs from the saved map")
+
+        recorded = {fid: T for _, fid, T in sys_a.frame_trajectory()}
+        r = res["resume"] = _resume(base["a"], frames, recorded, device)
+        log(f"[osmap] resume: load_map {r['load_ms']:.3f} ms; LOST after the load "
+            f"{r['lost_after_load']}; replayed frames {OSMAP_RESUME[0]}..{OSMAP_RESUME[1] - 1}: "
+            f"{r['states']}; first OK at frame {r['first_ok']}"
+            + (f", {r['rot_err_rad']:.6f} rad and {r['t_err']:.6f} units from the [loop] pass's "
+               f"pose; OK on {r['ok_after']:.4f} of the frames after it" if r["first_ok"] is not None
+               else "")
+            + f"; {r['lost_fused_launches']} fused-match launches on the LOST frames; launches "
+            f"{r['launches']}")
+        if not r["lost_after_load"]:
+            fails.append("resume: not LOST after the load")
+        if r["first_ok"] is None or r["first_ok"] - OSMAP_RESUME[0] >= GATE_RELOC_WITHIN:
+            fails.append(f"resume: not OK within {GATE_RELOC_WITHIN} replayed frames")
+        elif (r["rot_err_rad"] >= GATE_RELOC_RAD or r["t_err"] >= GATE_RELOC_T
+              or r["ok_after"] < GATE_RESUME_OK_AFTER):
+            fails.append("resume: relocalized pose too far or tracking not kept")
+        if r["lost_fused_launches"] <= 0:
+            fails.append("resume: no fused-match launch on the LOST frames")
+
+        n_a = st.n_keyframes()
+        counters = _counters()
+        for c in counters.values():
+            c.launches = 0
+        for lo, hi in OSMAP_B_SPANS:
+            (sys_b, ok_b), b_ms = _timed(device, lambda: _session(frames, lo, hi, device))
+            if n_a + sys_b.store.n_keyframes() <= st.cfg.max_keyframes:
+                break
+            log(f"[osmap] session B over {lo}..{hi - 1}: {sys_b.store.n_keyframes()} keyframes "
+                f"do not fit beside A's {n_a} in {st.cfg.max_keyframes} slots; shortened")
+        b = res["session_b"] = dict(span=[lo, hi], ms=b_ms, keyframes=sys_b.store.n_keyframes(),
+                                    points=sys_b.store.n_points(),
+                                    ok_fraction=float(ok_b.mean()))
+        b["save"] = _save(sys_b, base["b"], 0, device)
+        log(f"[osmap] session B over loop frames {lo}..{hi - 1} in {b_ms:.1f} ms: "
+            f"{b['keyframes']} keyframes, {b['points']} points, OK on {b['ok_fraction']:.4f} of "
+            f"its frames; saved in {b['save']['ms']:.3f} ms")
+        del sys_b
+        tally = dict(sim3_evals=0, sim3_fused_launches=0)
+        sys_m, merged, ms, gba_ms, n_kf, n_pt = _merge(base["a"], base["b"], device, tally)
+        sm = sys_m.store
+        traj = sys_m.keyframe_trajectory()
+        fids = [int(round(ts * 30.0)) for ts, _ in traj]
+        gt = [poses[f] for f in fids]
+        ate = synthetic.ate_rmse([np.linalg.inv(Twc) for _, Twc in traj], gt)
+        centers = np.array([-T[:3, :3].T @ T[:3, 3] for T in gt])
+        path = float(np.linalg.norm(np.diff(centers, axis=0), axis=1).sum())
+        m = res["merge"] = dict(
+            merged=bool(merged), ms=ms, gba_ms=gba_ms, keyframes_before=n_kf,
+            keyframes_after=sm.n_keyframes(), points_before=n_pt, points_after=sm.n_points(),
+            pair=[int(x) for x in sys_m.loop_closer.loop_edges[-1]] if merged else None,
+            ate=float(ate), path=path, **tally,
+            finite=bool(np.isfinite(sm.kf_T[sm.kf_valid]).all()
+                        and np.isfinite(sm.pt_xyz[sm.pt_valid]).all()),
+            launches={k: c.launches for k, c in counters.items()})
+        log(f"[osmap] merge B into A: {m['merged']} in {ms:.3f} ms (global BA {gba_ms:.3f} ms); "
+            f"aligned pair {m['pair']}; keyframes {n_kf} -> {m['keyframes_after']}, points "
+            f"{n_pt} -> {m['points_after']}; joint keyframe ATE {ate:.6f} over a {path:.4f}-unit "
+            f"path ({ate / path:.6f}; gate {GATE_MERGE_ATE}); {m['sim3_evals']} Sim3 evaluations "
+            f"with {m['sim3_fused_launches']} fused-match launches; finite {m['finite']}; "
+            f"launches from session B to the merge {m['launches']}")
+        if not merged:
+            fails.append("merge: no alignment found")
+        elif not (m["keyframes_after"] > n_kf and m["finite"] and ate < GATE_MERGE_ATE * path):
+            fails.append("merge: keyframes not added, non-finite, or ATE over the gate")
+        if m["sim3_fused_launches"] <= 0:
+            fails.append("merge: no fused-match launch during the Sim3 evaluations")
+        del sys_m
+
+        tally = dict(sim3_evals=0, sim3_fused_launches=0)
+        sys_r, merged, ms, _, n_kf, n_pt = _merge(base["a"], base["o"], device, tally)
+        rb = res["rollback"] = dict(merged=bool(merged), ms=ms, **tally,
+                                    unchanged=(sys_r.store.n_keyframes() == n_kf
+                                               and sys_r.store.n_points() == n_pt))
+        log(f"[osmap] merge O (the orbit's scene) into A: {rb['merged']} in {ms:.3f} ms after "
+            f"{rb['sim3_evals']} Sim3 evaluations; keyframe and point counts unchanged "
+            f"{rb['unchanged']}")
+        if rb["merged"] or not rb["unchanged"]:
+            fails.append("rollback: the disjoint map aligned or the counts changed")
+        if fails:
+            raise RuntimeError("osmap failed: " + "; ".join(fails))
+        return res
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def render_loop(n_frames):
@@ -1168,10 +1415,12 @@ def main() -> int:
     out["coop"], sys2 = phase_coop(frames, poses)
     out["reloc"] = phase_reloc(sys2, frames)
     del sys2
-    out["orbit_loop"] = phase_orbit_loop(frames, poses)
+    out["orbit_loop"], sys_o = phase_orbit_loop(frames, poses)
 
     frames, poses = render_loop(N_FRAMES_LOOP)
-    out["loop"] = phase_loop(frames, poses)
+    out["loop"], sys_a = phase_loop(frames, poses)
+    out["osmap"] = phase_osmap(sys_a, sys_o, frames, poses)
+    del sys_a, sys_o
     out["seconds"] = time.perf_counter() - t_start
 
     if args.json:

@@ -176,7 +176,8 @@ class MapStore:
         free = order[~valid[order]][:count]
         if len(free) < count:
             return None
-        setattr(self, cursor_attr, int(free[-1] + 1) % n)
+        if count:  # an empty request leaves the cursor
+            setattr(self, cursor_attr, int(free[-1] + 1) % n)
         return free
 
     def add_keyframe(self, Tcw, feats_xy, feats_angle, feats_octave, feats_desc,

@@ -69,7 +69,15 @@ def match_bound_features(desc1, bound1, angle1, desc2, bound2, angle2) -> mcore.
 
 def lm_scale_consistent(S_ransac, S_opt) -> torch.Tensor:
     """True where the Sim3 LM kept the scale within MAX_LM_SCALE_CHANGE of
-    Horn's estimate (a bool tensor: no host read)."""
+    Horn's estimate (a bool tensor: no host read).
+
+    The guard is a deviation from the reference package, kept by decision.
+    On bench.py's loop sequence on an NVIDIA H100 (80GB HBM3, 700 W) it
+    rejects none of the 35 candidates (LM/Horn scale ratios 0.952-1.039),
+    and a run without it closes the same loop at the same ATE. Where the LM
+    does run along the scale (tests/data/sim3_scale_runaway.npz: both
+    packages take it past 4), accepting the candidate wrecks the map on the
+    correction, so dropping the guard would copy a fault and buy nothing."""
     change = torch.log(sim3.to_Rts(S_opt)[2] / sim3.to_Rts(S_ransac)[2])
     return torch.abs(change) <= math.log(MAX_LM_SCALE_CHANGE)
 
@@ -86,7 +94,8 @@ def sim3_candidate_program(desc1, bound1, angle1, xy1, oct1, feat_valid1, xyz1,
     are the camera-frame coordinates of each feature's point.
 
     A candidate succeeds as in the reference package, and only if the LM kept
-    Horn's scale (:func:`lm_scale_consistent`).
+    Horn's scale (:func:`lm_scale_consistent`, a decided deviation: see
+    there).
 
     Returns (head [HEAD] float32, f1 [cap] int64, f2 [cap], pair_ok [cap]
     bool)."""

@@ -11,9 +11,10 @@ keyframe event inline before the next frame; ``pipelined=False`` applies each
 frame's result before returning. In every mode the system keeps a BoW
 keyframe database and relocalizes from LOST. ``enable_mapping=False`` is the
 localization-only mode; ``enable_loop_closing=False`` skips loop closing.
-Options outside the port so far (the worker threads, persistence,
-distribution) raise ``NotImplementedError`` naming the ROADMAP item that
-brings them.
+Maps persist in the Osmap format (``save_map``, ``load_map``, and
+``merge_session``, which aligns another session's map into this one). Options
+outside the port so far (the worker threads, distribution) raise
+``NotImplementedError`` naming the ROADMAP item that brings them.
 
 The system runs on the card: ``device=None`` means ``cuda`` and raises when
 there is none; only an explicit ``device="cpu"`` runs it on the CPU.
@@ -26,7 +27,8 @@ import numpy as np
 import torch
 
 from .. import default_device
-from ..geometry import se3
+from ..geometry import se3, sim3
+from ..io import osmap_io
 from ..map.mirror import DeviceMirror
 from ..map.store import MapStore
 from ..utils import transfer
@@ -36,7 +38,7 @@ from ..vocab.dbow2 import default_vocabulary, load_binary
 from ..vocab.tree import Vocabulary
 from .config import SlamConfig
 from .frame import unpack_host
-from .local_mapping import LocalMapper
+from .local_mapping import LocalMapper, global_bundle_adjustment
 from .loop_closing import LoopCloser
 from .relocalization import Relocalizer
 from .tracking import Tracker, TrackingState
@@ -211,18 +213,31 @@ class System:
         """Re-anchor the tracker after a loop correction moved the world:
         publish the corrected map, drop the frames in flight (their pose chain
         is anchored in the old world), and remap the last frame's pose through
-        its reference keyframe's corrected pose."""
+        its reference keyframe's corrected pose.
+
+        The motion model survives a remap: it is a camera-to-camera motion,
+        and the previous pose is remapped with the last one. The reference
+        package clears it, and the pipelined tracker's next frame, three
+        frames past the last one applied once the two in flight are
+        dropped, is then predicted with no motion at all: on bench.py's loop
+        sequence on an NVIDIA H100 that frame was lost in every run, and
+        with the motion model kept it is not (chip_smoke.py [loop])."""
         self.mirror.refresh()
         tr = self.tracker
         tr._pending.clear()
         tr._chain = None
-        tr.velocity = None
         tr._prev_Tcw = None
+        remapped = False
         if tr.last is not None and tr.trajectory:
             ts, fid, ref, seq, T_rel, _ = tr.trajectory[-1]
             if (fid == tr.last.frame_id and ref >= 0 and self.store.kf_valid[ref]
                     and self.store.kf_seq[ref] == seq):
                 tr.last.Tcw = (T_rel @ self.store.kf_T[ref]).astype(np.float32)
+                remapped = True
+        if remapped and tr.velocity is not None:
+            tr._prev_Tcw = (np.linalg.inv(tr.velocity) @ tr.last.Tcw).astype(np.float32)
+        else:
+            tr.velocity = None
 
     # ------------------------------------------------------------------ #
     def track_monocular(self, img, timestamp: float = 0.0):
@@ -271,14 +286,125 @@ class System:
     def state(self) -> TrackingState:
         return self.tracker.state
 
-    def save_map(self, base: str, options: int = 0):
-        raise _not_ported("save_map", "item 11")
+    # ------------------------------------------------------------------ #
+    # Osmap persistence (os1's Osmap::mapSave / mapLoad, Osmap.cpp:68-291)
+    # ------------------------------------------------------------------ #
+    def save_map(self, base: str, options: int = 0) -> dict:
+        """Write the map in the Osmap format (``io/osmap_io.py``); returns the
+        header. Like the reference, which stops local mapping for the save
+        (Osmap.cpp:70-73), the cooperative scheduler is drained first, so
+        every keyframe is materialized before it is written."""
+        if self.coop is not None:
+            self.coop.drain()
+        with self.timer("osmap.save"):
+            return osmap_io.save_map(self.store, self.cfg, base, options)
 
-    def load_map(self, base: str):
-        raise _not_ported("load_map", "item 11")
+    def load_map(self, base: str) -> dict:
+        """Replace the map with an Osmap map and resume LOST: the next frames
+        relocalize into it (Osmap::mapLoad). The queued keyframe events and
+        the frames in flight belong to the old map and are dropped; the
+        loop closer's edges and consistency groups stay, as in the
+        reference. Returns the header."""
+        if self.coop is not None:
+            self.coop.clear()
+        self._pending_frames.clear()
+        tr = self.tracker
+        tr._pending.clear()
+        tr._chain = None
+        tr._prev_Tcw = None
+        st = self.store
+        with self.timer("osmap.load"):
+            header = osmap_io.load_map(st, self.cfg, base)
+            self.db.clear()
+            kfs = np.nonzero(st.kf_valid)[0]
+            for k in kfs:
+                _, _, bow = self.db.compute_bow(st.kf_desc[k], st.kf_feat_valid[k])
+                self.db.add(int(k), bow)
+        tr.state = TrackingState.LOST
+        tr.last = None
+        tr.velocity = None
+        tr.ref_kf = int(kfs[-1]) if len(kfs) else -1
+        self.mirror.refresh()
+        return header
 
-    def merge_session(self, base: str, max_probes: int = 8, run_gba: bool = True):
-        raise _not_ported("merge_session", "item 11")
+    def merge_session(self, base: str, max_probes: int = 8, run_gba: bool = True) -> bool:
+        """Merge another session's Osmap map into the live one (multi-session
+        mapping). Up to ``max_probes`` of the loaded keyframes, those with the
+        most features first, query the BoW database; each one's two best
+        resident candidates go through loop closing's Sim3 candidate program
+        until one aligns. The loaded map is then moved into this map's world
+        frame, the aligned pair's duplicate points are fused, and a global BA
+        (``run_gba``) polishes the joint map. Returns True if an alignment was
+        found; on False the loaded keyframes and points are removed again."""
+        if self.coop is not None:
+            self.coop.drain()
+        st, lc = self.store, self.loop_closer
+        kf_map, pt_map = osmap_io.merge_map(st, self.cfg, base)
+        merged_kfs = kf_map[kf_map >= 0]
+        loaded = pt_map[pt_map >= 0]
+        merged_pts = np.zeros(st.cfg.max_points, bool)
+        merged_pts[loaded[st.pt_valid[loaded]]] = True
+        # BoW vectors of the loaded keyframes: queries only until they align.
+        bows = {int(k): self.db.compute_bow(st.kf_desc[k], st.kf_feat_valid[k])[2]
+                for k in merged_kfs}
+
+        hit = None
+        probes = sorted(merged_kfs.tolist(), key=lambda k: -int(st.kf_feat_valid[k].sum()))
+        with self.timer("merge.align"):
+            for k in probes[:max_probes]:
+                cands, _ = self.db.query(bows[k])
+                for cand in cands[:2].tolist():
+                    ok, S_cl, pairs = lc._fetch_sim3(
+                        lc._dispatch_sim3(lc._snapshot_sim3(k, cand)), k, cand)
+                    if ok:
+                        hit = (k, cand, S_cl, pairs)
+                        break
+                if hit:
+                    break
+        if hit is None:  # no overlap: roll the load back
+            for k in merged_kfs:
+                st.cull_keyframe(int(k))
+            dead = np.nonzero(merged_pts & st.pt_valid)[0]
+            if len(dead):
+                st.cull_points(dead)
+            self.mirror.refresh()
+            return False
+
+        kf, cand, S_cl, pairs = hit
+        # S_cl maps cand's camera to kf's. With cand's pose T_lw in this
+        # world (A) and kf's T_kb in the loaded one (B), B maps into A by
+        # X_A = S_ba X_B, S_ba = (S_cl T_lw)^-1 T_kb.
+        pids = np.nonzero(merged_pts & st.pt_valid)[0]
+        dev = transfer.upload(dict(S_cl=S_cl, T_lw=st.kf_T[cand], T_kb=st.kf_T[kf],
+                                   xyz=st.pt_xyz[pids], T=st.kf_T[merged_kfs]), self.device)
+        S_ba = sim3.inverse(dev["S_cl"] @ dev["T_lw"]) @ dev["T_kb"]
+        S_ab = sim3.inverse(S_ba)
+        xyz = dev["xyz"] @ S_ba[:3, :3].T + S_ba[:3, 3]
+        T = sim3.to_se3(dev["T"] @ S_ab)
+        st.pt_xyz[pids], st.kf_T[merged_kfs] = self.reads.numpy_all((xyz, T))
+
+        # The Sim3 inlier pairs see the same physical points: keep the
+        # resident one of each duplicate.
+        obs_kf, obs_cand = st.kf_obs_point[kf], st.kf_obs_point[cand]
+        for fk, fc in pairs:
+            p_b, p_a = int(obs_kf[fk]), int(obs_cand[fc])
+            if p_b < 0 or p_a < 0 or p_b == p_a:
+                continue
+            if st.pt_valid[p_b] and st.pt_valid[p_a]:
+                st.replace_point(p_b, p_a)
+        st.update_point_derived(pids[st.pt_valid[pids]], self.cfg.orb.scale_factor,
+                                self.cfg.orb.n_levels)
+        # Spanning tree and place recognition for the merged side.
+        st.kf_parent[kf] = cand
+        lc.loop_edges.append((min(kf, cand), max(kf, cand)))
+        for k in merged_kfs:
+            self.db.add(int(k), bows[int(k)])
+        self.mirror.refresh()
+        if run_gba:
+            with self.timer("merge.gba"):
+                global_bundle_adjustment(st, self.cfg, self.device, iters=20, reads=self.reads)
+            self.mirror.refresh()
+        return True
 
     # ------------------------------------------------------------------ #
     def keyframe_trajectory(self):

@@ -1,7 +1,8 @@
 """What loop closing costs on the card: the Sim3 candidate program and the
 essential graph, on bench.py's loop sequence in the shipped mode.
 
-    python3 scripts/profile_loop.py [--candidate 10] [--no-scale-guard] [--json PATH]
+    python3 scripts/profile_loop.py [--candidate 10] [--no-scale-guard]
+        [--materialize-before-correction] [--json PATH]
 
 Tracks bench.py's 300-frame loop sequence once at the bench configuration
 with loop closing on. The ``--candidate``-th Sim3 candidate program is timed
@@ -17,7 +18,10 @@ essential graph's 20 LM iterations on the final map with its spanning-tree
 edges, twice. It prints every Sim3 candidate's scale-guard reading.
 ``--no-scale-guard`` runs the sequence without the port's Sim3 scale guard
 (``loop_closing.MAX_LM_SCALE_CHANGE``), as the reference package accepts.
-Needs a CUDA device; the numbers are the card's.
+``--materialize-before-correction`` materializes the keyframes still waiting
+for their feature arrays right before the correction, so that it sees every
+keyframe complete. The states of the frames after the correction are
+printed. Needs a CUDA device; the numbers are the card's.
 """
 from __future__ import annotations
 
@@ -48,6 +52,7 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--candidate", type=int, default=10)
     parser.add_argument("--no-scale-guard", action="store_true")
+    parser.add_argument("--materialize-before-correction", action="store_true")
     parser.add_argument("--json", help="write the numbers to this file")
     args = parser.parse_args()
 
@@ -60,7 +65,8 @@ def main() -> int:
                          capture_output=True, text=True, check=True).stdout.strip()
     print(f"[device] {smi}", flush=True)
     activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    out = dict(device=smi, scale_guard=not args.no_scale_guard)
+    out = dict(device=smi, scale_guard=not args.no_scale_guard,
+               materialize_before_correction=args.materialize_before_correction)
     if args.no_scale_guard:
         from os1_tpu_torch.pipeline import loop_closing
 
@@ -149,9 +155,25 @@ def main() -> int:
         print(f"[correction] {out['correction']}", flush=True)
 
     sys_.loop_closer.on_corrected = report_correction
+    if args.materialize_before_correction:
+        correct = lc.correct
+
+        def correct_materialized(*a):
+            waiting = sorted(sys_._pending_frames)
+            for k in waiting:
+                sys_._materialize_kf(k)
+            print(f"[correction] materialized {waiting} before it", flush=True)
+            return correct(*a)
+
+        lc.correct = correct_materialized
+    states = []
     for i, img in enumerate(frames):
-        sys_.track_monocular(img, timestamp=i / 30.0)
+        states.append(sys_.track_monocular(img, timestamp=i / 30.0)[0].name)
     sys_.flush()
+    if "correction" in out:
+        c = out["correction"]["frame"] - 1  # the frame whose step ran the correction
+        out["after_correction"] = states[c:c + 7]
+        print(f"[correction] states of frames {c}..{c + 6}: {out['after_correction']}", flush=True)
     torch.cuda.synchronize()
     traj = sys_.frame_trajectory()
     from os1_tpu_torch.io import synthetic

@@ -347,6 +347,56 @@ def test_process_closes_like_jax(pair):
     assert not any(ref for *_, ref, _ in tl.sim3_log[:-1])
 
 
+def test_reanchoring_keeps_the_motion_model():
+    """After a correction the system drops the frames in flight and remaps
+    the last frame's pose through its reference keyframe's corrected pose,
+    as the JAX package does; the motion model survives, with the previous
+    pose remapped alongside (the JAX package clears it, and the pipelined
+    frame after a correction, predicted with no motion, was lost on the
+    card). Without a remap the motion model is cleared."""
+    from os1_tpu_torch.features.orb import OrbConfig
+    from os1_tpu_torch.geometry import se3
+    from os1_tpu_torch.geometry.camera import Camera
+    from os1_tpu_torch.pipeline import System
+    from os1_tpu_torch.pipeline.tracking import TrackedFrame
+
+    cfg = SlamConfig(camera=Camera.make(100.0, 100.0, 40.0, 30.0, width=80, height=60,
+                                        device="cpu"),
+                     orb=OrbConfig(height=60, width=80, n_features=64, n_levels=2),
+                     map=MapConfig(max_keyframes=4, max_points=64, n_features=64))
+
+    def pose(w, t):
+        return se3.exp(torch.tensor(w + t, dtype=torch.float64)).numpy().astype(np.float32)
+
+    for remap in (True, False):
+        sys_ = System(cfg, pipelined=True, coop_mapping=True, device="cpu")
+        st, tr = sys_.store, sys_.tracker
+        T_ref = pose([0.01, 0.2, 0.0], [0.3, 0.0, 0.1])
+        tr.ref_kf = st.add_keyframe_pending(T_ref, frame_id=4)
+        T_prev = pose([0.01, 0.23, 0.0], [0.32, 0.0, 0.1])
+        T_last = pose([0.01, 0.26, 0.0], [0.35, 0.01, 0.1])
+        tr.velocity = T_last @ np.linalg.inv(T_prev)
+        tr.last = TrackedFrame(data=None, Tcw=T_last, bind=np.full(64, -1), frame_id=7,
+                               timestamp=7 / 30)
+        tr._record_trajectory(7 / 30, 7, T_last)
+        tr._pending, tr._chain = ["in flight"], {"T": None}
+        G = pose([0.0, 0.05, 0.02], [0.1, -0.2, 0.05])  # the correction moves the world
+        st.kf_T[tr.ref_kf] = T_ref @ G
+        if not remap:
+            st.kf_seq[tr.ref_kf] += 1  # the reference keyframe no longer the recorded one
+        sys_._after_loop_correction()
+        assert tr._pending == [] and tr._chain is None
+        if remap:
+            np.testing.assert_allclose(tr.last.Tcw, T_last @ G, atol=1e-5)
+            np.testing.assert_allclose(tr.velocity, T_last @ np.linalg.inv(T_prev), atol=1e-6)
+            np.testing.assert_allclose(tr._prev_Tcw, T_prev @ G, atol=1e-5)
+            np.testing.assert_allclose(tr.last.Tcw @ np.linalg.inv(tr._prev_Tcw), tr.velocity,
+                                       atol=1e-5)
+        else:
+            np.testing.assert_array_equal(tr.last.Tcw, T_last)
+            assert tr.velocity is None and tr._prev_Tcw is None
+
+
 # ------------------------------------------------------- room circuit --
 
 def test_room_circuit_closes_a_loop():
