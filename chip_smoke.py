@@ -69,7 +69,25 @@ fails (non-zero exit, no final result line) if any phase fails:
      system over loop frames 180-299) saved and merged into a fresh load of A:
      aligned, more keyframes, finite, the joint keyframe ATE under 5% of the
      path, fused-match launches in the Sim3 evaluations; O merged into a fresh
-     load of A: rolled back, the counts unchanged.
+     load of A: rolled back, the counts unchanged;
+ 13. threaded, run_slam's default mode (the reference's thread topology):
+     System(cfg, pipelined=True, async_mapping=True), loop closing on, one
+     pass over the bench orbit (after [orbit-loop]; init by frame 10, OK on
+     85% of the frames from the first OK one, ATE <= 0.2) and one over the
+     loop sequence (after [loop]; ATE <= 0.22, a loop closed, corrected on
+     the LoopClosing thread, a global-BA thread spawned and joined); both
+     gated on every keyframe materialized and nothing pending after flush, no
+     exception caught by a worker thread and launches of every kernel of the
+     path. It prints frames/s, p50/p99, host reads and launches a frame by
+     thread, the map-lock wait by thread and the worker queue depths, beside
+     the shipped mode's frames/s over the same frames ([orbit-loop], [loop]'s
+     first pass). The trajectory is not deterministic and not gated;
+ 14. cli: ``python3 -m os1_tpu_torch.run_slam --synthetic --frames 120
+     --save-trajectory T --save-map M`` as a subprocess (the threaded
+     default): 120 frames, final state OK, 90% tracked, the ATE reported, the
+     files written; then ``--load-map M --localization --frames 30``: it
+     relocalizes and tracks, and the map's counts do not change; then
+     ``--warmup``, which exits 0 with the three libraries built.
 
 Every tracking path runs the fused match kernel (every matcher, one launch a
 call; relocalization's five candidates are one 5-lane launch, checked in
@@ -78,7 +96,9 @@ requires. The table kernel (hamming_matrix_cuda) is launched on no path once
 every matcher is fused; it stays checked in [hamming] and listed with 0
 launches. [match] also checks loop closing's two forms (the bound-feature
 match and the guided projection). The kernels line gives the launches of
-the [loop] phase's first pass, this slice's main path.
+the [threaded] loop pass, this slice's main path (run_slam's default mode);
+each wrapper counts its launches by thread too, and all threads launch on
+the device's default stream.
 
 The last line is {"ok": true, "device": {...}}; the line before it gives the
 card's name and power limit, and the one before that lists the kernels.
@@ -125,6 +145,9 @@ OSMAP_RESUME = (150, 210)
 OSMAP_B_SPANS = ((180, 300), (180, 260), (180, 230))  # session B, shortened if A + B overflow
 GATE_RESUME_OK_AFTER = 0.9  # OK share of the replayed frames after the first OK one
 GATE_MERGE_ATE = 0.05  # of the path length (tests/test_merge.py:56-64)
+GATE_OK_THREADED = 0.85  # the threaded mode's bound (tests/test_async_pipeline.py:157)
+CLI_FRAMES, CLI_LOC_FRAMES = 120, 30  # [cli]: the synthetic run, the localization run
+GATE_CLI_TRACKED = 0.9
 HAMMING_SHAPES = ((1024, 1024), (4096, 1024), (1000, 777))
 # Fused match problems (batch, N, M, A shared, dense gate): the motion and
 # local-map searches, a ragged one, the smallest, K9's fusion lanes and K8's
@@ -548,7 +571,8 @@ def phase_patches():
     return out
 
 
-def build_system(device, mapping: bool, shipped: bool = False, loop: bool = False):
+def build_system(device, mapping: bool, shipped: bool = False, loop: bool = False,
+                 threaded: bool = False):
     from os1_tpu_torch.features.orb import OrbConfig
     from os1_tpu_torch.geometry.camera import Camera
     from os1_tpu_torch.map.store import MapConfig
@@ -560,6 +584,9 @@ def build_system(device, mapping: bool, shipped: bool = False, loop: bool = Fals
         orb=OrbConfig(height=H, width=W, n_features=N_FEATURES, n_levels=N_LEVELS),
         map=MapConfig(max_keyframes=MAP_KEYFRAMES, max_points=MAP_POINTS, n_features=N_FEATURES),
     )
+    if threaded:  # run_slam's default: the reference's thread topology
+        return System(cfg, pipelined=True, async_mapping=True, enable_loop_closing=loop,
+                      device=device)
     if shipped:
         return System(cfg, pipelined=True, coop_mapping=True, enable_loop_closing=loop,
                       device=device)
@@ -581,6 +608,13 @@ def _counters():
             "sample_patches_cuda": patches.sample_patches_cuda}
 
 
+def _reset_counts(counters):
+    from os1_tpu_torch.ops.cuda_build import reset_launches
+
+    for c in counters.values():
+        reset_launches(c)
+
+
 def _sync(device):
     import torch
 
@@ -589,39 +623,48 @@ def _sync(device):
 
 
 def drive(frames, mapping: bool, device="cuda", timer=None, shipped: bool = False,
-          loop: bool = False, on_build=None):
+          loop: bool = False, on_build=None, threaded: bool = False):
     """Track ``frames`` through System.track_monocular, with every kernel
     launch count set to 0 just before and read just after. Returns the
     system, per-frame latency, OK flags, host reads and launch counts.
     Synchronous paths synchronise the card after every frame; the shipped
-    (pipelined) mode keeps its frames in flight, its latency is the call's,
-    and it ends with flush() and one synchronise, timed as ``wall_s``."""
+    (pipelined) and threaded modes keep their frames in flight, their latency
+    is the call's, and they end with flush() and one synchronise, timed as
+    ``wall_s``. The system also keeps the launches by thread
+    (``launches_by_thread``) and, threaded, the worker queue depths after
+    each frame (``queue_depths``: mapping, loop)."""
     from os1_tpu_torch.pipeline import TrackingState
 
-    sys_ = build_system(device, mapping, shipped, loop)
+    pipelined = shipped or threaded
+    sys_ = build_system(device, mapping, shipped, loop, threaded)
     if timer is not None:
         sys_.set_timer(timer)
     if on_build is not None:
         on_build(sys_)
     counters = _counters()
-    for c in counters.values():
-        c.launches = 0
-    lat, states, reads = [], [], []
+    _reset_counts(counters)
+    sys_.lock.reset_stats()
+    lat, states, reads, depths = [], [], [], []
+    mw, lw = sys_.mapping_worker, sys_.loop_worker
     t_start = time.perf_counter()
     for i, img in enumerate(frames):
         r0 = sys_.reads.count
         t0 = time.perf_counter()
         state, _ = sys_.track_monocular(img, timestamp=i / 30.0)
-        if not shipped:
+        if not pipelined:
             _sync(device)
         lat.append(time.perf_counter() - t0)
         states.append(state == TrackingState.OK)
         reads.append(sys_.reads.count - r0)
-    if shipped:
+        if mw is not None:
+            depths.append((mw.queue_size(), lw.queue_size() if lw is not None else 0))
+    if pipelined:
         sys_.flush()
         _sync(device)
     sys_.wall_s = time.perf_counter() - t_start
     launches = {k: c.launches for k, c in counters.items()}
+    sys_.launches_by_thread = {k: dict(c.launches_by_thread) for k, c in counters.items()}
+    sys_.queue_depths = np.array(depths).reshape(-1, 2)
     return sys_, np.array(lat), np.array(states), np.array(reads), launches
 
 
@@ -882,8 +925,7 @@ def phase_reloc(sys_, frames):
 
     recorded = {fid: T for _, fid, T in sys_.frame_trajectory()}
     counters = _counters()
-    for c in counters.values():
-        c.launches = 0
+    _reset_counts(counters)
     t = len(frames)
     timer = sys_.timer
     per_frame = []  # (frame, state after, relocalization ms, fused launches, candidates)
@@ -1186,8 +1228,7 @@ def _resume(base, frames, recorded, device):
 
     sys_ = build_system(device, mapping=True, shipped=True, loop=True)
     counters = _counters()
-    for c in counters.values():
-        c.launches = 0
+    _reset_counts(counters)
     _, load_ms = _timed(device, lambda: sys_.load_map(base))
     lost_after_load = sys_.state == TrackingState.LOST
     states, lost_launches, first_ok, Tcw_first = [], 0, None, None
@@ -1304,8 +1345,7 @@ def phase_osmap(sys_a, sys_o, frames, poses, device="cuda"):
 
         n_a = st.n_keyframes()
         counters = _counters()
-        for c in counters.values():
-            c.launches = 0
+        _reset_counts(counters)
         for lo, hi in OSMAP_B_SPANS:
             (sys_b, ok_b), b_ms = _timed(device, lambda: _session(frames, lo, hi, device))
             if n_a + sys_b.store.n_keyframes() <= st.cfg.max_keyframes:
@@ -1368,6 +1408,184 @@ def phase_osmap(sys_a, sys_o, frames, poses, device="cuda"):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+def phase_threaded(tag, frames, poses, coop_ref, device="cuda"):
+    """run_slam's default mode, the reference's thread topology:
+    System(cfg, pipelined=True, async_mapping=True), loop closing on, one
+    pass over ``frames`` (tag "orbit" or "loop"). Gated, after flush(), on
+    every live keyframe materialized, nothing pending, no exception caught by
+    a worker thread and launches of every kernel of the path; the orbit on
+    initialization by frame 10, OK on GATE_OK_THREADED of the frames from the
+    first OK one and ATE <= 0.2; the loop sequence on ATE <= 0.22 and a loop
+    closed, corrected on the LoopClosing thread, with a global-BA thread
+    spawned and joined. Reports frames/s, p50/p99 of the call's host time,
+    host reads and launches a frame by thread, the map-lock wait by thread,
+    the worker queue depths, and ``coop_ref``'s (the shipped mode's first
+    pass over the same frames in this call) frames/s beside its own."""
+    import threading
+
+    corrected_on = []
+
+    def on_build(s):
+        correct = s.loop_closer.correct
+
+        def traced(*a, **kw):
+            corrected_on.append(threading.current_thread().name)
+            return correct(*a, **kw)
+
+        s.loop_closer.correct = traced
+
+    _peak_mem(device, reset=True)
+    sys_, lat, ok, reads, launches = drive(frames, mapping=True, device=device, loop=True,
+                                           threaded=True, on_build=on_build)
+    try:
+        res, traj = summarize(sys_, lat, ok, reads, launches, poses, stretch_end=len(frames))
+        lc, st, n = sys_.loop_closer, sys_.store, len(frames)
+        first = res["init_frame"]
+        live = np.nonzero(st.kf_valid)[0]
+        depths = sys_.queue_depths
+        gba = lc._gba_thread
+        res.update(
+            peak_mem_bytes=_peak_mem(device), frames=n, wall_fps=n / sys_.wall_s,
+            sha256=_traj_sha(traj), ok_fraction=float(ok[first:].mean()) if first < n else 0.0,
+            n_loops_closed=lc.n_loops_closed, loop_edges=[list(e) for e in lc.loop_edges],
+            corrected_on=corrected_on, gba_spawned=lc.gba_spawned,
+            gba_joined=gba is None or not gba.is_alive(),
+            all_materialized=bool(all(st.kf_feat_valid[i].any() for i in live)),
+            idle_after_flush=(not sys_._pending_frames and not sys_.tracker._pending
+                              and sys_.mapping_worker.queue_size() == 0
+                              and sys_.loop_worker.queue_size() == 0),
+            worker_errors=[f"{name} kf {kf}: {exc!r}" for name, kf, exc in sys_.worker_errors()],
+            stale_binds=sys_.tracker.stale_binds,
+            launches_by_thread=sys_.launches_by_thread,
+            launches_per_frame_by_thread={k: {t: v / n for t, v in d.items()}
+                                          for k, d in sys_.launches_by_thread.items()},
+            lock_wait_s=dict(sys_.lock.wait_s), lock_waits=dict(sys_.lock.waits),
+            queue_max=[sys_.mapping_worker.max_queue, sys_.loop_worker.max_queue],
+            queue_mean=[float(x) for x in depths.mean(axis=0)] if len(depths) else None,
+            coop_fps_ok=coop_ref["fps_ok"], coop_p50_ms=coop_ref["p50_ms"],
+            coop_p99_ms=coop_ref["p99_ms"], coop_wall_fps=coop_ref["wall_fps"])
+        res["tracker_lock_wait_ms_per_frame"] = res["lock_wait_s"].get("MainThread", 0.0) * 1e3 / n
+        label = f"threaded {tag}"
+        _log_path(label, res)
+        log(f"[{label}] whole run incl. flush {sys_.wall_s:.3f}s = {res['wall_fps']:.3f} frames/s; "
+            f"the shipped (coop) mode over the same frames in this call: {res['coop_fps_ok']:.3f} "
+            f"frames/s, p50 {res['coop_p50_ms']:.3f} ms, p99 {res['coop_p99_ms']:.3f} ms, whole "
+            f"run {res['coop_wall_fps']:.3f} frames/s")
+        log(f"[{label}] OK fraction {res['ok_fraction']:.4f} from frame {first}; loss events "
+            f"{res['loss_log']}; loops closed {res['n_loops_closed']} (edges {res['loop_edges']}), "
+            f"corrected on {corrected_on}; global-BA threads {lc.gba_spawned}, joined "
+            f"{res['gba_joined']}; trajectory sha256 {res['sha256'][:16]} (not gated)")
+        log(f"[{label}] launches a frame by thread: {res['launches_per_frame_by_thread']}")
+        log(f"[{label}] map-lock wait by thread: "
+            + ", ".join(f"{t} {w * 1e3:.1f} ms over {res['lock_waits'][t]} waits"
+                        for t, w in res["lock_wait_s"].items())
+            + f" (tracker {res['tracker_lock_wait_ms_per_frame']:.3f} ms a frame); queue depth "
+            f"(mapping, loop): max {res['queue_max']}, mean after a frame {res['queue_mean']}")
+        log(f"[{label}] all keyframes materialized {res['all_materialized']}; idle after flush "
+            f"{res['idle_after_flush']}; worker errors {res['worker_errors']}; bindings dropped "
+            f"because their point slot was refilled in flight {res['stale_binds']}")
+        fails = []
+        if tag == "orbit":
+            if first > GATE_INIT_BY:
+                fails.append(f"initialized at frame {first} > {GATE_INIT_BY}")
+            if res["ok_fraction"] < GATE_OK_THREADED:
+                fails.append(f"OK on {res['ok_fraction']:.4f} < {GATE_OK_THREADED} of the frames")
+            if not res["ate"] <= GATE_ATE:
+                fails.append(f"ATE {res['ate']} > {GATE_ATE}")
+        else:
+            if not res["ate"] <= GATE_ATE_LOOP:
+                fails.append(f"ATE {res['ate']} > {GATE_ATE_LOOP}")
+            if res["n_loops_closed"] < GATE_MIN_LOOPS:
+                fails.append(f"{res['n_loops_closed']} loops closed < {GATE_MIN_LOOPS}")
+            if not corrected_on or set(corrected_on) != {"LoopClosing"}:
+                fails.append(f"corrections not on the LoopClosing thread: {corrected_on}")
+            if lc.gba_spawned < 1 or not res["gba_joined"]:
+                fails.append("no global-BA thread spawned and joined")
+        if not res["finite"]:
+            fails.append("non-finite or misshaped poses")
+        if not (res["all_materialized"] and res["idle_after_flush"]):
+            fails.append("keyframes left unmaterialized or work pending after flush")
+        if res["worker_errors"]:
+            fails.append(f"worker threads caught exceptions: {res['worker_errors']}")
+        _launch_gate(res, fails)
+        if fails:
+            raise RuntimeError(f"{label} failed: " + "; ".join(fails))
+        return res
+    finally:
+        sys_.shutdown()
+
+
+def _run_cli(args, timeout=600):
+    """One ``python3 -m os1_tpu_torch.run_slam`` process from this checkout:
+    (exit code, seconds, stdout, stderr)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=here + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "os1_tpu_torch.run_slam", *args], cwd=here,
+                          env=env, capture_output=True, text=True, timeout=timeout)
+    return proc.returncode, time.perf_counter() - t0, proc.stdout, proc.stderr
+
+
+def _summary(stdout):
+    lines = [ln for ln in stdout.strip().splitlines() if ln.startswith("{")]
+    return json.loads(lines[-1]) if lines else None
+
+
+def phase_cli():
+    """The user's entry point as a subprocess on the card, in its threaded
+    default: the synthetic orbit (120 frames, writing the trajectory and the
+    map), the map reloaded in localization mode (30 frames: it relocalizes,
+    tracks, and the map's counts stay), then --warmup."""
+    tmp = tempfile.mkdtemp(prefix="os1_cli_")
+    try:
+        traj, base = os.path.join(tmp, "kf_traj.txt"), os.path.join(tmp, "map")
+        rc, secs, out, err = _run_cli(["--synthetic", "--frames", str(CLI_FRAMES),
+                                       "--save-trajectory", traj, "--save-map", base])
+        run = _summary(out)
+        log(f"[cli] run_slam --synthetic --frames {CLI_FRAMES}: exit {rc} in {secs:.1f}s; {run}")
+        fails = []
+        if rc != 0 or run is None:
+            raise RuntimeError(f"cli: run_slam failed (exit {rc}): {err[-2000:]}")
+        if run["frames"] != CLI_FRAMES or run["final_state"] != "OK":
+            fails.append(f"frames {run['frames']}, final state {run['final_state']}")
+        if run["tracked_fraction"] < GATE_CLI_TRACKED:
+            fails.append(f"tracked fraction {run['tracked_fraction']} < {GATE_CLI_TRACKED}")
+        if "ate_rmse_vs_groundtruth" not in run:
+            fails.append("no ATE against the ground truth")
+        rows = [ln.split() for ln in open(traj)] if os.path.exists(traj) else []
+        files = {ext: os.path.getsize(base + ext) if os.path.exists(base + ext) else None
+                 for ext in (".yaml", ".keyframes", ".mappoints", ".features")}
+        if len(rows) != run["keyframes"] or any(len(r) != 8 for r in rows):
+            fails.append(f"trajectory file: {len(rows)} rows for {run['keyframes']} keyframes")
+        if None in files.values():
+            fails.append(f"map files missing: {files}")
+        log(f"[cli] trajectory {len(rows)} keyframe rows; map files (bytes) {files}")
+
+        rc, secs2, out, err = _run_cli(["--synthetic", "--frames", str(CLI_LOC_FRAMES),
+                                        "--load-map", base + ".yaml", "--localization"])
+        loc = _summary(out)
+        log(f"[cli] run_slam --load-map --localization --frames {CLI_LOC_FRAMES}: exit {rc} in "
+            f"{secs2:.1f}s; {loc}")
+        if rc != 0 or loc is None:
+            raise RuntimeError(f"cli: the localization run failed (exit {rc}): {err[-2000:]}")
+        if loc["frames"] != CLI_LOC_FRAMES or loc["final_state"] != "OK" or \
+                loc["tracked_fraction"] <= 0:
+            fails.append(f"localization run: {loc}")
+        if (loc["keyframes"], loc["map_points"]) != (run["keyframes"], run["map_points"]):
+            fails.append("the frozen map's counts changed")
+
+        rc, secs3, out, err = _run_cli(["--warmup"])
+        log(f"[cli] run_slam --warmup: exit {rc} in {secs3:.1f}s; {out.strip()}")
+        if rc != 0 or not out.startswith("warmup: 3 libraries ready"):
+            fails.append(f"--warmup: exit {rc}, {out.strip()} {err[-500:]}")
+        if fails:
+            raise RuntimeError("cli failed: " + "; ".join(fails))
+        return dict(run=run, run_s=secs, localization=loc, localization_s=secs2, warmup_s=secs3,
+                    trajectory_rows=len(rows), map_bytes=files)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def render_loop(n_frames):
     from os1_tpu_torch.io import synthetic
 
@@ -1416,11 +1634,14 @@ def main() -> int:
     out["reloc"] = phase_reloc(sys2, frames)
     del sys2
     out["orbit_loop"], sys_o = phase_orbit_loop(frames, poses)
+    out["threaded_orbit"] = phase_threaded("orbit", frames, poses, out["orbit_loop"])
 
     frames, poses = render_loop(N_FRAMES_LOOP)
     out["loop"], sys_a = phase_loop(frames, poses)
+    out["threaded_loop"] = phase_threaded("loop", frames, poses, out["loop"]["first"])
     out["osmap"] = phase_osmap(sys_a, sys_o, frames, poses)
     del sys_a, sys_o
+    out["cli"] = phase_cli()
     out["seconds"] = time.perf_counter() - t_start
 
     if args.json:
@@ -1428,7 +1649,7 @@ def main() -> int:
         with open(args.json, "w") as f:
             json.dump(out, f, indent=1)
 
-    launches = out["loop"]["first"]["launches"]
+    launches = out["threaded_loop"]["launches"]
     big = next(r for r in out["hamming"] if r["shape"] == [4096, 1024])
     fused = next(r for r in out["match"] if r["batch"] == 1 and r["shape"] == [4096, 1024])
     p1 = next(r for r in out["patches"]["p1"] if r["n"] == 1024)

@@ -10,10 +10,14 @@ Kernels written by hand for ``sm_90a`` live under ``csrc/`` and are built on
 first use into ``_build/``. A wrapper launches its kernel for a CUDA tensor or
 raises; it uses its plain PyTorch version only for a tensor on the CPU.
 
-The slice ported so far is the shipped mode, ``System(cfg, pipelined=True,
+The slice ported so far: the shipped mode, ``System(cfg, pipelined=True,
 coop_mapping=True).track_monocular`` (pipelined tracking, cooperative local
-mapping and loop closing, relocalization), and the synchronous modes. Every
-entry point runs on the card unless the caller passes ``device="cpu"``.
+mapping and loop closing, relocalization), the reference's threaded mode
+(``async_mapping=True``: the LocalMapping, LoopClosing and GlobalBA threads),
+the synchronous modes, Osmap persistence, and the shell: ``python -m
+os1_tpu_torch.run_slam`` with its settings reader, dataset and video inputs
+and viewer. Every entry point runs on the card unless the caller passes
+``device="cpu"`` (``--device cpu``).
 """
 
 __version__ = "0.1.0"

@@ -60,7 +60,7 @@ def store_from_numpy(src) -> MapStore:
                        ("max_keyframes", "max_points", "n_features", "max_obs_per_point")})
     st = MapStore(cfg)
     for name, val in vars(st).items():
-        if isinstance(val, np.ndarray):
+        if isinstance(val, np.ndarray) and name != "pt_gen":  # the port's own, kept at 0
             setattr(st, name, np.array(getattr(src, name), dtype=val.dtype, copy=True))
     st._kf_seq_next = int(getattr(src, "_kf_seq_next", 0))
     st._pt_cursor = int(getattr(src, "_pt_cursor", 0))

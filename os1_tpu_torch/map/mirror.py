@@ -12,6 +12,12 @@ straight from the frame's device tensors (:meth:`insert_keyframe_row_device`)
 before the host store holds its features; until the store materializes it,
 the publish keeps the device row's ``kf_feat_valid`` instead of the store's
 all-False row.
+
+A publish writes new tensors (the scatter is out of place), so a step that
+took the mirror's tensors keeps one version of the map while another thread
+publishes, as the reference's immutable arrays do. ``pt_gen`` (host) is the
+store's allocation count per point slot as of the last publish of the point
+rows: a binding made on the mirror names its points by slot and that count.
 """
 from __future__ import annotations
 
@@ -76,6 +82,7 @@ class DeviceMirror:
         for f in _PT_FIELDS + ("kf_T", "kf_valid") + _KF_STATIC + _KF_ROWS:
             self._publish(f)
         self._shadow = {f: getattr(st, f).copy() for f in _PT_FIELDS + _KF_ROWS}
+        self.pt_gen = st.pt_gen.copy()
         for f, v in saved.items():
             getattr(self, f)[rows] = v
         self._pending_rows = set(keep.tolist())
@@ -85,7 +92,8 @@ class DeviceMirror:
         st = self.store
         didx = torch.from_numpy(idx.astype(np.int64)).to(self.device)
         for f in fields:
-            getattr(self, f).index_copy_(0, didx, to_device(getattr(st, f)[idx], self.device))
+            setattr(self, f, getattr(self, f).index_copy(
+                0, didx, to_device(getattr(st, f)[idx], self.device)))
             self._shadow[f][idx] = getattr(st, f)[idx]
 
     def refresh_dynamic(self) -> None:
@@ -103,6 +111,8 @@ class DeviceMirror:
                 sh[f] = getattr(st, f).copy()
         elif len(idx):
             self._scatter_rows(_PT_FIELDS, idx)
+        if len(idx):
+            self.pt_gen = st.pt_gen.copy()
 
         self._publish("kf_T")
         self._publish("kf_valid")

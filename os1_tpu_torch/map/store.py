@@ -128,6 +128,10 @@ class MapStore:
         self.pt_color = np.zeros((P, 3), np.uint8)
         self.pt_far = np.zeros(P, bool)
         self.pt_far_class = np.zeros(P, np.uint8)
+        # Allocations per slot: a slot id with its generation names one point,
+        # so a binding taken before a cull can tell the slot's next point
+        # from its own (the tracker's frames in flight, tracking.py).
+        self.pt_gen = np.zeros(P, np.int64)
 
     # ------------------------------------------------------------------ #
     # allocation / lifecycle
@@ -157,6 +161,7 @@ class MapStore:
         if free is None:
             raise RuntimeError("map point capacity exhausted")
         self.pt_valid[free] = True
+        self.pt_gen[free] += 1
         return free
 
     def _alloc_ring(self, valid: np.ndarray, cursor_attr: str, count: int):

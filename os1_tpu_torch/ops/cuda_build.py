@@ -7,6 +7,10 @@ point is a plain C function that launches on the stream it is given and
 returns ``cudaGetLastError()`` (0 = launched). Host C++ sources (``*.cpp``)
 take the same road with ``g++``; their entry points return 0 on success.
 Nothing is built while a module is imported, and a failed build raises.
+
+Each kernel wrapper counts its launches with :func:`count_launch`: in total
+(``fn.launches``) and per thread (``fn.launches_by_thread``, by thread name),
+exact when the tracker and the worker threads launch at once.
 """
 from __future__ import annotations
 
@@ -23,6 +27,24 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 GXX_FLAGS = ("-std=c++17", "-O3", "-shared", "-fPIC")
+
+
+_COUNT_LOCK = threading.Lock()
+
+
+def count_launch(fn) -> None:
+    """Add one launch to a wrapper's counters (see the module docstring)."""
+    name = threading.current_thread().name
+    with _COUNT_LOCK:
+        fn.launches += 1
+        fn.launches_by_thread[name] = fn.launches_by_thread.get(name, 0) + 1
+
+
+def reset_launches(fn) -> None:
+    """Set a wrapper's counters to 0."""
+    with _COUNT_LOCK:
+        fn.launches = 0
+        fn.launches_by_thread = {}
 
 
 def _nvcc() -> str:

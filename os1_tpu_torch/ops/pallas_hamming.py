@@ -24,7 +24,7 @@ from typing import NamedTuple
 import torch
 
 from . import hamming
-from .cuda_build import KernelLibrary
+from .cuda_build import KernelLibrary, count_launch, reset_launches
 
 BIG = 1 << 20  # distance of a gated-out pair
 MAX_COLUMNS = 1 << 22  # the fused kernel packs a column into 22 bits of its keys
@@ -153,11 +153,11 @@ def hamming_matrix_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         with torch.cuda.device(a.device):
             LIBRARY.launch("hamming_table_launch", a.data_ptr(), b.data_ptr(), out.data_ptr(),
                            nb, n, m, a_bstride, _stream(a.device))
-        hamming_matrix_cuda.launches += 1
+        count_launch(hamming_matrix_cuda)
     return out if batched else out[0]
 
 
-hamming_matrix_cuda.launches = 0
+reset_launches(hamming_matrix_cuda)
 
 
 def gated_match_cuda(desc_a, desc_b, max_dist: int, ratio: float, gate=None, *, valid_a=None,
@@ -234,8 +234,8 @@ def gated_match_cuda(desc_a, desc_b, max_dist: int, ratio: float, gate=None, *, 
         int(max_dist), float(ratio))
     with torch.cuda.device(dev):
         LIBRARY.launch("gated_match_launch", ctypes.byref(args), _stream(dev))
-    gated_match_cuda.launches += 1
+    count_launch(gated_match_cuda)
     return out
 
 
-gated_match_cuda.launches = 0
+reset_launches(gated_match_cuda)

@@ -17,7 +17,7 @@ import ctypes
 
 import torch
 
-from .cuda_build import KernelLibrary
+from .cuda_build import KernelLibrary, count_launch, reset_launches
 
 PS = 32  # window side
 HALF = 15  # window start = center - 15
@@ -84,11 +84,11 @@ def extract_patches_cuda(stack: torch.Tensor, kps: torch.Tensor) -> torch.Tensor
         stream = torch.cuda.current_stream(stack.device).cuda_stream
         LIBRARY.launch("patch_gather_launch", stack.data_ptr(), kps.data_ptr(), out.data_ptr(),
                        n, L, H, W, stream)
-    extract_patches_cuda.launches += 1
+    count_launch(extract_patches_cuda)
     return out
 
 
-extract_patches_cuda.launches = 0
+reset_launches(extract_patches_cuda)
 
 
 def sample_patches_cuda(patches: torch.Tensor, abin: torch.Tensor,
@@ -113,11 +113,11 @@ def sample_patches_cuda(patches: torch.Tensor, abin: torch.Tensor,
         stream = torch.cuda.current_stream(patches.device).cuda_stream
         LIBRARY.launch("sample_gather_launch", patches.data_ptr(), abin.data_ptr(),
                        table.data_ptr(), out.data_ptr(), n, S, stream)
-    sample_patches_cuda.launches += 1
+    count_launch(sample_patches_cuda)
     return out
 
 
-sample_patches_cuda.launches = 0
+reset_launches(sample_patches_cuda)
 
 
 def keypoint_patches(stack: torch.Tensor, kps: torch.Tensor) -> torch.Tensor:

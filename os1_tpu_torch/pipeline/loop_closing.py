@@ -10,13 +10,19 @@ and the global BA run on the device too. The attempt is a generator that
 yields between a dispatch and its read, so the cooperative scheduler spreads
 it over the following frames; :meth:`LoopCloser.process` drains it.
 
-Not ported: the reference package's GlobalBA thread and its mapping-worker
-barrier (the threaded pipeline, ROADMAP item 7) and the mesh-sharded solves
-(item 12).
+With the worker threads on (``mapping_worker`` set), the attempt runs on the
+LoopClosing thread: detection and the snapshots under the map lock, the
+candidates' programs outside it, the correction under it with local mapping
+stopped (LoopClosing.cc:413-431), and the global BA on a detached GlobalBA
+thread (LoopClosing.cc:584) that a newer loop aborts between chunks
+(mbStopGBA) and joins before it corrects.
+
+Not ported: the mesh-sharded solves (ROADMAP item 12).
 """
 from __future__ import annotations
 
 import math
+import threading
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -37,6 +43,7 @@ from ..utils.profiling import HostReads, StageTimer
 from ..vocab.database import KeyFrameDatabase
 from .config import SlamConfig
 from .local_mapping import apply_global_ba, assemble_global_ba
+from .workers import MapLock
 
 MIN_MATCHES_SIM3 = 20  # LoopClosing.cc:269
 MIN_INLIERS_SIM3 = 20  # LoopClosing.cc:297 / Optimizer nInliers >= 20
@@ -52,6 +59,7 @@ CONSISTENCY_TH = 3  # LoopClosing.cc:53 mnCovisibilityConsistencyTh
 SIM3_CAP = 512  # match capacity of the Sim3 solve
 PROJ_CAP = 4096  # loop-region point capacity of the guided projection
 GBA_ITERS, GBA_CHUNK = 20, 5  # global BA: LM iterations, dispatched in chunks
+STOP_WAIT_S = 60.0  # the longest a correction waits for local mapping to stop
 # Packed head: success, n_match, n_total, n_inliers, S12 flat (16), Horn's
 # scale, the LM's scale, success without the scale guard, padding.
 HEAD = 35
@@ -176,6 +184,12 @@ class LoopCloser:
     # (kf, cand, n_match, n_inliers, n_total, Horn's scale, the LM's scale,
     # success without the scale guard, success).
     sim3_log: list = field(default_factory=list)
+    lock: MapLock = field(default_factory=MapLock)  # the map lock, wired by System
+    # The threaded pipeline's MappingWorker, wired by System: stopped while
+    # a correction or a global BA's write-back moves the map.
+    mapping_worker: object = None
+    gba_spawned: int = 0  # global-BA threads started
+    gba_errors: list = field(default_factory=list)  # exceptions of the GlobalBA thread
 
     def __post_init__(self):
         self.device = torch.device(self.device)
@@ -184,6 +198,7 @@ class LoopCloser:
         self._intr = torch.as_tensor(self.cfg.intr, device=self.device)
         self._sigma2 = torch.as_tensor(self.cfg.sigma2_table, device=self.device)
         self._stop_gba = False  # mbStopGBA (LoopClosing.cc:416-425)
+        self._gba_thread = None  # the detached global BA (LoopClosing.cc:584)
 
     # ------------------------------------------------------------------ #
     def process(self, kf: int, kf_count: int) -> bool:
@@ -198,12 +213,13 @@ class LoopCloser:
         """The attempt as a generator that yields at each dispatch -> read
         interval and yields its running closed-a-loop flag; a keyframe with no
         candidate (the common case) finishes without yielding."""
-        if not self.store.kf_valid[kf]:
-            return  # culled before the loop stage got to it
-        with self.timer("loop.detect"):
-            candidates = self.detect(kf, kf_count)
-        snaps = [(int(c), self._snapshot_sim3(kf, int(c))) for c in candidates[:3]]
-        epoch0 = self.store.epoch
+        with self.lock:
+            if not self.store.kf_valid[kf]:
+                return  # culled before the loop stage got to it
+            with self.timer("loop.detect"):
+                candidates = self.detect(kf, kf_count)
+            snaps = [(int(c), self._snapshot_sim3(kf, int(c))) for c in candidates[:3]]
+            epoch0 = self.store.epoch
         if not snaps:
             return
         try:
@@ -218,27 +234,88 @@ class LoopCloser:
                 if ok:
                     hit = (cand, S_cl, pairs)
                     break
-            if hit is None or self.store.epoch != epoch0:
-                return  # no candidate held, or the system was reset meanwhile
+            if hit is None:
+                return  # no candidate held
+            with self.lock:
+                if self.store.epoch != epoch0:
+                    return  # the system was reset meanwhile
             cand, S_cl, pairs = hit
-            with self.timer("loop.correct"):
-                if self.store.kf_valid[kf] and self.store.kf_valid[cand]:
-                    self.correct(kf, cand, S_cl, pairs)
-                    self.last_loop_kf = kf_count
-                    self.n_loops_closed += 1
+            # A running global BA belongs to a superseded loop (LoopClosing.cc:416-425).
+            with self.timer("loop.gba_abort"):
+                self.abort_gba()
+            self._stop_mapping()
+            try:
+                with self.timer("loop.correct"), self.lock:
+                    if self.store.kf_valid[kf] and self.store.kf_valid[cand]:
+                        self.correct(kf, cand, S_cl, pairs)
+                        self.last_loop_kf = kf_count
+                        self.n_loops_closed += 1
+            finally:
+                self._release_mapping()
             if self.on_corrected is not None:
                 self.on_corrected()
         finally:
             self.closing_active = False
-        # Chunked global BA on this thread: the sync drain runs it inline, the
-        # cooperative scheduler spreads its chunks over the frames.
         self._stop_gba = False
-        yield from self._gba_steps()
+        if self.mapping_worker is not None:
+            self._spawn_gba()
+        else:
+            # Chunked global BA on this thread: the sync drain runs it inline,
+            # the cooperative scheduler spreads its chunks over the frames.
+            yield from self._gba_steps()
         yield True
 
+    def _stop_mapping(self) -> None:
+        """Local mapping stops (after its pass in flight) while the map moves
+        (LoopClosing.cc:413-431, :686); the cooperative and synchronous
+        pipelines need no barrier, nothing maps while this runs. Raises, with
+        the worker released, if it has not stopped within ``STOP_WAIT_S``."""
+        if self.mapping_worker is not None:
+            with self.timer("loop.stop_barrier"):
+                self.mapping_worker.request_stop()
+                if not self.mapping_worker.wait_stopped(timeout=STOP_WAIT_S):
+                    self.mapping_worker.release()
+                    raise RuntimeError(f"the LocalMapping thread did not stop within "
+                                       f"{STOP_WAIT_S} s; the map is left as it was")
+
+    def _release_mapping(self) -> None:
+        if self.mapping_worker is not None:
+            self.mapping_worker.release()
+
     def abort_gba(self) -> None:
-        """Skip the chunks of a global BA not yet dispatched (mbStopGBA)."""
+        """Stop a global BA between its chunks (mbStopGBA) and join its
+        thread, if one runs."""
         self._stop_gba = True
+        t = self._gba_thread
+        if t is not None and t.is_alive():
+            t.join(timeout=120.0)
+        self._gba_thread = None
+
+    def wait_gba(self, timeout: float = 120.0) -> bool:
+        """Join a running global BA thread; False if it is still running."""
+        t = self._gba_thread
+        if t is not None:
+            t.join(timeout)
+            return not t.is_alive()
+        return True
+
+    def _spawn_gba(self) -> None:
+        """Start the detached global BA thread (LoopClosing.cc:584)."""
+        self._gba_thread = threading.Thread(target=self._run_gba, daemon=True, name="GlobalBA")
+        self.gba_spawned += 1
+        self._gba_thread.start()
+
+    def _run_gba(self) -> None:
+        """The GlobalBA thread: drains :meth:`_gba_steps`; an exception is
+        printed and kept (``gba_errors``)."""
+        try:
+            for _ in self._gba_steps():
+                pass
+        except Exception as exc:  # noqa: BLE001: kept for the caller, as the workers do
+            import traceback
+
+            traceback.print_exc()
+            self.gba_errors.append(exc)
 
     # ------------------------------------------------------------------ #
     def _gba_steps(self):
@@ -246,7 +323,7 @@ class LoopCloser:
         generator steps: each GBA_CHUNK-iteration LM chunk is dispatched and
         the generator yields while the device solves; abortable between
         chunks."""
-        with self.timer("loop.gba.assemble"):
+        with self.timer("loop.gba.assemble"), self.lock:
             work = assemble_global_ba(self.store, self.cfg, self.device)
         if work is None:
             return
@@ -267,11 +344,15 @@ class LoopCloser:
             cam_T, points, obs_inlier = transfer.fetch(dev, self.reads)
         if self._stop_gba:
             return
-        with self.timer("loop.gba.apply"):
-            apply_global_ba(self.store, self.cfg, res._replace(
-                cam_T=cam_T, points=points, obs_inlier=obs_inlier), meta)
-            if self.on_map_updated is not None:
-                self.on_map_updated()
+        self._stop_mapping()
+        try:
+            with self.timer("loop.gba.apply"), self.lock:
+                apply_global_ba(self.store, self.cfg, res._replace(
+                    cam_T=cam_T, points=points, obs_inlier=obs_inlier), meta)
+                if self.on_map_updated is not None:
+                    self.on_map_updated()
+        finally:
+            self._release_mapping()
 
     # ------------------------------------------------------------------ #
     def detect(self, kf: int, kf_count: int) -> np.ndarray:
@@ -318,9 +399,10 @@ class LoopCloser:
 
     # ------------------------------------------------------------------ #
     def _snapshot_sim3(self, kf: int, cand: int) -> dict:
-        """Host copy of one candidate's program inputs. xyz1/xyz2 are the
-        camera-frame coordinates of the point bound to each feature (garbage
-        for unbound features: the program gates on the bound masks)."""
+        """Host copy of one candidate's program inputs, taken under the map
+        lock. xyz1/xyz2 are the camera-frame coordinates of the point bound
+        to each feature (garbage for unbound features: the program gates on
+        the bound masks)."""
         st = self.store
         obs1, obs2 = st.kf_obs_point[kf], st.kf_obs_point[cand]
         bound1 = (obs1 >= 0) & st.pt_valid[np.clip(obs1, 0, None)]
@@ -336,7 +418,7 @@ class LoopCloser:
         pts = pts[st.pt_valid[pts]][:PROJ_CAP]
         n_real = len(pts)
         pts = np.concatenate([pts, np.zeros(PROJ_CAP - n_real, np.int64)])
-        return dict(
+        snap = dict(
             desc1=st.kf_desc[kf], bound1=bound1, angle1=st.kf_angle[kf], xy1=st.kf_xy[kf],
             oct1=st.kf_octave[kf], feat_valid1=st.kf_feat_valid[kf],
             xyz1=xyz1.astype(np.float32),
@@ -344,6 +426,7 @@ class LoopCloser:
             xy2=st.kf_xy[cand], oct2=st.kf_octave[cand], xyz2=xyz2.astype(np.float32),
             region_desc=st.pt_desc[pts], region_xyz=st.pt_xyz[pts].astype(np.float32),
             region_ok=np.arange(PROJ_CAP) < n_real, T_lw=T2.astype(np.float32))
+        return {k: np.array(v) for k, v in snap.items()}  # copies: the rows may change later
 
     def _run_sim3(self, snap: dict):
         """The candidate program on a snapshot, on the device (the snapshot

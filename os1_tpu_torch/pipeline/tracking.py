@@ -12,6 +12,19 @@ its motion-search retry decision on the host (``tracking_fused.py``), so a
 dispatch waits for its own retry read; the packed result is copied to the
 host from dispatch (``utils/transfer.py``) and read at apply.
 
+The map lock (``lock``, shared with the mapper, the loop closer and the
+System) is held over initialization, relocalization and a synchronous frame,
+as in the reference; a pipelined frame takes it to snapshot its inputs and
+again to extend the chain, runs its fused step between the two, and a
+result's host tail takes it after the result's read. A loop correction on
+another thread drops the frames in flight (:meth:`Tracker.drop_in_flight`);
+a frame dispatched, or a result read, across the drop is discarded, since
+its pose chain is anchored in the old world. A point culled while a frame is
+in flight may have its slot refilled before the frame is read: each binding
+is checked against the slot's allocation count (``MapStore.pt_gen``) the
+step saw, and a refilled slot is dropped from the result
+(``stale_binds`` counts them) and from the device chain.
+
 Not ported: the unfused host path (the system always builds the mirror).
 
 States mirror the reference enum: NO_IMAGES_YET / NOT_INITIALIZED / OK / LOST.
@@ -35,6 +48,7 @@ from . import tracking_fused
 from . import tracking_kernels as tk
 from .config import SlamConfig
 from .frame import FrameData, make_frame_builder, unpack_host
+from .workers import MapLock
 
 
 # Frames in flight when pipelined; the state the tracker returns lags this
@@ -59,6 +73,7 @@ class TrackedFrame:
     frame_id: int
     timestamp: float
     n_inliers: int = 0
+    gen: np.ndarray | None = None  # the store's pt_gen when ``bind`` was checked
 
 
 @dataclass
@@ -99,6 +114,11 @@ class Tracker:
     loss_log: list = field(default_factory=list)  # (frame_id, reason) per loss
     timer: StageTimer = field(default_factory=StageTimer)
     reads: HostReads = field(default_factory=HostReads)
+    lock: MapLock = field(default_factory=MapLock)  # the map lock, wired by System
+    # The viewer's view of the last bootstrap attempt: its match (device
+    # tensors, read only when drawn) and its current frame.
+    _init_match_dev: object = None
+    _init_cur_frame: object = None
 
     def __post_init__(self):
         self.device = torch.device(self.device)
@@ -107,7 +127,11 @@ class Tracker:
         self._fused = tracking_fused.make_fused_tracker(self.cfg, self.reads)
         self._prev_Tcw = None  # pose two frames back
         self._chain = None  # device-resident (bind, T, prevT, octave) chain
-        self._pending = []  # in flight: [(frame, fid, timestamp, announced packed, local_ids)]
+        # In flight: [(frame, fid, timestamp, announced packed, local_ids, anchor,
+        # the mirror's pt_gen at dispatch)].
+        self._pending = []
+        self._anchor = 0  # raised by drop_in_flight: older results are stale
+        self.stale_binds = 0  # bindings dropped because their slot held a new point
         if self.sampler is None:
             self.sampler = GumbelSampler(seed=0, device=self.device)
         self._intr = torch.as_tensor(self.cfg.intr, device=self.device)
@@ -127,13 +151,13 @@ class Tracker:
         fid = self.frame_id
         self.frame_id += 1
         if self.state in (TrackingState.NO_IMAGES_YET, TrackingState.NOT_INITIALIZED):
-            with self.timer("trk.initialize"):
+            with self.timer("trk.initialize"), self.lock:
                 self._monocular_initialization(frame, fid, timestamp)
         elif self.state == TrackingState.OK:
             with self.timer("trk.track"):
                 self._track_frame(frame, fid, timestamp)
         else:
-            with self.timer("trk.relocalize"):
+            with self.timer("trk.relocalize"), self.lock:
                 self._relocalize(frame, fid, timestamp)
         # Trajectory entries are recorded once per accepted frame, with the
         # frame's own timestamp, by the success paths; pipelined results lag.
@@ -150,6 +174,16 @@ class Tracker:
                                     Tcw.copy()))
         else:
             self.trajectory.append((timestamp, fid, -1, -1, None, Tcw.copy()))
+
+    @property
+    def last_init_match(self):
+        """[N] init-reference feature -> current feature (-1 unmatched) of the
+        last bootstrap attempt, read from the device when asked for (the
+        viewer's initialization flow lines)."""
+        if self._init_match_dev is None:
+            return None
+        ok, idx = (t.detach().cpu().numpy() for t in self._init_match_dev)
+        return np.where(ok, idx, -1)
 
     def frame_trajectory(self):
         """[(timestamp, frame_id, Tcw)] re-anchored through each reference
@@ -196,6 +230,8 @@ class Tracker:
             adopt_ref()
             return
         match, init, head = tk.bootstrap(self.init_ref.data, frame, self._K, self.sampler)
+        self._init_match_dev = (match.ok, match.idx)
+        self._init_cur_frame = frame
         head = self.reads.numpy(head)
         min_m = self.cfg.th.min_init_matches
         if head[0] <= min_m:  # reference frame was feature-poor: replace
@@ -251,7 +287,8 @@ class Tracker:
         bind = np.full(self.cfg.orb.n_features, -1, np.int64)
         bind[m_idx[feat1_ids]] = pt_ids
         self.last = TrackedFrame(data=frame, Tcw=st.kf_T[k2].copy(), bind=bind, frame_id=fid,
-                                 timestamp=timestamp, n_inliers=len(pt_ids))
+                                 timestamp=timestamp, n_inliers=len(pt_ids),
+                                 gen=st.pt_gen.copy())
         self.ref_kf = k2
         self.last_kf_frame_id = fid
         self.velocity = None
@@ -307,13 +344,14 @@ class Tracker:
     # ------------------------------------------------------------------ #
     def _track_frame(self, frame, fid, timestamp):
         if self.pipelined:
-            self._track_frame_pipelined(frame, fid, timestamp)
+            self._track_frame_pipelined(frame, fid, timestamp)  # locks inside
             return
-        ok, Tcw, bind, n_inl = self._track_frame_device(frame)
-        if not ok:
-            self._mark_lost(frame, fid, timestamp, self.last.Tcw, info="pre_fail")
-            return
-        self._finish_frame(frame, fid, timestamp, Tcw, bind, n_inl)
+        with self.lock:
+            ok, Tcw, bind, n_inl = self._track_frame_device(frame)
+            if not ok:
+                self._mark_lost(frame, fid, timestamp, self.last.Tcw, info="pre_fail")
+                return
+            self._finish_frame(frame, fid, timestamp, Tcw, bind, n_inl)
 
     def _mark_lost(self, frame, fid, timestamp, Tcw, info=""):
         self.loss_log.append((fid, info))
@@ -334,40 +372,61 @@ class Tracker:
             self.velocity = Tcw @ np.linalg.inv(self.last.Tcw)
             self._prev_Tcw = self.last.Tcw
         self.last = TrackedFrame(data=frame, Tcw=Tcw, bind=bind, frame_id=fid,
-                                 timestamp=timestamp, n_inliers=n_inl)
+                                 timestamp=timestamp, n_inliers=n_inl,
+                                 gen=self.store.pt_gen.copy())
         self._record_trajectory(timestamp, fid, Tcw)
         if self._need_new_keyframe(n_inl, fid):
             self._create_new_keyframe(frame, fid, timestamp, bind)
 
-    def _dispatch_fused(self, frame, last_T, prev_T, last_bind, last_octave, has_vel, host_bind):
-        """Run the fused step against the mirror. The chain inputs are device
-        tensors; ``host_bind`` is the newest applied binding, from which the
-        local-map candidates are chosen."""
+    def _fused_snapshot(self, host_bind):
+        """The map state a fused step reads (under the map lock): the mirror's
+        tensors, the reference keyframe and the local-map candidates chosen
+        from ``host_bind``, the newest applied binding."""
         with self.timer("trk.local_select"):
             local_ids, local_valid = self._local_candidates(host_bind)
         mir = self.mirror
+        mirror = (mir.pt_xyz, mir.pt_desc, mir.pt_valid, mir.pt_normal, mir.pt_min_dist,
+                  mir.pt_max_dist, mir.kf_desc, mir.kf_angle, mir.kf_obs_point)
         ref_ok = self.ref_kf >= 0 and bool(self.store.kf_valid[self.ref_kf])
-        out = self._fused(
-            mir.pt_xyz, mir.pt_desc, mir.pt_valid, mir.pt_normal,
-            mir.pt_min_dist, mir.pt_max_dist, mir.kf_desc, mir.kf_angle, mir.kf_obs_point,
-            frame, self.camera, self._intr, last_T, prev_T, last_bind, last_octave,
-            max(self.ref_kf, 0), ref_ok, self._dev(local_ids), self._dev(local_valid), has_vel,
-        )
+        return mirror, max(self.ref_kf, 0), ref_ok, local_ids, local_valid
+
+    def _dispatch_fused(self, frame, last_T, prev_T, last_bind, last_octave, has_vel, snap):
+        """Run the fused step on a snapshot (:meth:`_fused_snapshot`). The
+        chain inputs are device tensors."""
+        mirror, ref, ref_ok, local_ids, local_valid = snap
+        out = self._fused(*mirror, frame, self.camera, self._intr, last_T, prev_T, last_bind,
+                          last_octave, ref, ref_ok, self._dev(local_ids), self._dev(local_valid),
+                          has_vel)
         return out, local_ids
 
-    def _host_result(self, packed: np.ndarray, local_ids):
+    def _fresh(self, ids: np.ndarray, gen: np.ndarray):
+        """Point ids taken when the slots' allocation counts were ``gen``:
+        True where the slot still holds that point (a culled slot may since
+        hold a new point; the reference's MapPoint pointers cannot alias)."""
+        c = np.clip(ids, 0, None)
+        return (ids < 0) | (self.store.pt_gen[c] == gen[c])
+
+    def _host_result(self, packed: np.ndarray, local_ids, gen=None):
         """Unpack a fused result and count its point statistics. Returns
-        (pre_ok, Tcw, bind, n_localmap_inliers, unpacked)."""
+        (pre_ok, Tcw, bind, n_localmap_inliers, unpacked). ``gen``: the
+        mirror's pt_gen the step ran on, for a result read after the map
+        moved on."""
         host = tracking_fused.unpack_result(packed, self.cfg.orb.n_features,
                                             self.cfg.th.max_local_points)
         if not host["pre_ok"]:
             return False, None, None, 0, host
         st = self.store
         bind = host["bind"].astype(np.int64)
+        visible = local_ids[host["visible"]]
+        if gen is not None:  # points culled and their slots refilled since the dispatch
+            fresh = self._fresh(bind, gen)
+            self.stale_binds += int((~fresh).sum())
+            bind = np.where(fresh, bind, -1)
+            visible = visible[self._fresh(visible, gen)]
         # Binds may reference points culled since the dispatch.
         bind = np.where((bind >= 0) & st.pt_valid[np.clip(bind, 0, None)], bind, -1)
         if not self.only_tracking:  # MapPoint::IncreaseVisible/Found
-            st.pt_visible[local_ids[host["visible"]]] += 1
+            st.pt_visible[visible] += 1
             st.pt_found[bind[bind >= 0]] += 1
         return True, host["Tcw"].astype(np.float32), bind, int(host["n_inliers"]), host
 
@@ -379,7 +438,7 @@ class Tracker:
         out, local_ids = self._dispatch_fused(
             frame, self._dev(self.last.Tcw.astype(np.float32)),
             self._dev(prev.astype(np.float32)), self._dev(self.last.bind.astype(np.int64)),
-            self.last.data.feats.octave, has_vel, self.last.bind)
+            self.last.data.feats.octave, has_vel, self._fused_snapshot(self.last.bind))
         return self._host_result(self.reads.numpy(out["packed"]), local_ids)[:4]
 
     # ------------------------------------------------------------------ #
@@ -387,53 +446,91 @@ class Tracker:
     # ------------------------------------------------------------------ #
     def _track_frame_pipelined(self, frame, fid, timestamp):
         """Dispatch this frame's fused step on the device chain, then apply
-        the results that fall out of the pipeline's depth."""
-        ch = self._chain
-        if ch is None:  # first pipelined frame after initialization or relocalization
-            prev = self._prev_Tcw if self._prev_Tcw is not None else self.last.Tcw
-            ch = dict(bind=self._dev(self.last.bind.astype(np.int64)),
-                      T=self._dev(self.last.Tcw.astype(np.float32)),
-                      prevT=self._dev(prev.astype(np.float32)),
-                      octave=self.last.data.feats.octave, has_vel=self.velocity is not None)
+        the results that fall out of the pipeline's depth. The step's inputs
+        are taken under the map lock and the step runs outside it (its
+        motion-search retry reads the device); a re-anchoring meanwhile
+        drops the frame with the chain it extended."""
+        with self.lock:
+            anchor = self._anchor
+            ch = self._chain
+            gen = self.mirror.pt_gen  # the point slots' allocations this step sees
+            bind = self.last.bind
+            if self.last.gen is not None:
+                bind = np.where(self._fresh(bind, self.last.gen), bind, -1)
+            if ch is None:  # first pipelined frame after initialization or relocalization
+                prev = self._prev_Tcw if self._prev_Tcw is not None else self.last.Tcw
+                ch = dict(bind=self._dev(bind.astype(np.int64)),
+                          T=self._dev(self.last.Tcw.astype(np.float32)),
+                          prevT=self._dev(prev.astype(np.float32)),
+                          octave=self.last.data.feats.octave, has_vel=self.velocity is not None)
+            else:
+                # The chain's binding was made on an older mirror: drop the
+                # points whose slots were refilled since.
+                refilled = (gen != ch["gen"]) & (ch["gen"] > 0)
+                if refilled.any():
+                    b = ch["bind"]
+                    hit = self._dev(refilled)[b.clamp(min=0)] & (b >= 0)
+                    ch = dict(ch, bind=torch.where(hit, torch.full_like(b, -1), b))
+            snap = self._fused_snapshot(bind)
         out, local_ids = self._dispatch_fused(frame, ch["T"], ch["prevT"], ch["bind"],
-                                              ch["octave"], ch["has_vel"], self.last.bind)
+                                              ch["octave"], ch["has_vel"], snap)
         packed = transfer.announce(out["packed"])
-        self._chain = dict(bind=out["bind"], T=out["Tcw"], prevT=ch["T"],
-                           octave=frame.feats.octave, has_vel=True)
-        self._pending.append((frame, fid, timestamp, packed, local_ids))
-        # Young maps track on a short leash: right after initialization the
-        # map covers a narrow view cone and every frame of lag delays the
-        # keyframes that extend it. Full depth once the map has 8 keyframes.
-        depth = PIPELINE_DEPTH if self.store.n_keyframes() >= 8 else 1
+        with self.lock:
+            if anchor != self._anchor:
+                return
+            self._chain = dict(bind=out["bind"], T=out["Tcw"], prevT=ch["T"],
+                               octave=frame.feats.octave, has_vel=True, gen=gen)
+            self._pending.append((frame, fid, timestamp, packed, local_ids, anchor, gen))
+            # Young maps track on a short leash: right after initialization the
+            # map covers a narrow view cone and every frame of lag delays the
+            # keyframes that extend it. Full depth once the map has 8 keyframes.
+            depth = PIPELINE_DEPTH if self.store.n_keyframes() >= 8 else 1
         # Drain to the target depth, so a shrinking depth contracts the backlog.
-        while len(self._pending) > max(1, depth):
-            self._apply_result(*self._pending.pop(0))
+        while (entry := self._pop_pending(max(1, depth))) is not None:
+            self._apply_result(*entry)
             if self.state != TrackingState.OK:
                 # The chain is poisoned: every frame in flight tracked against
                 # a lost pose. Discard them and let the state machine recover.
-                self._pending.clear()
-                self._chain = None
+                self.drop_in_flight()
                 break
 
-    def _apply_result(self, frame, fid, timestamp, packed, local_ids):
-        """Read one announced fused result and run the state machine's tail
-        for its frame."""
+    def _apply_result(self, frame, fid, timestamp, packed, local_ids, anchor, gen):
+        """Read one announced fused result, then, under the map lock, run the
+        state machine's tail for its frame (a stale result is discarded)."""
         with self.timer("trk.readback"):
             packed = transfer.fetch(packed, self.reads)
-        ok, Tcw, bind, n_inl, host = self._host_result(packed, local_ids)
-        if not ok:
-            self._mark_lost(frame, fid, timestamp, self.last.Tcw,
-                            info=f"pre_fail n_pre={host['n_pre']} motion={host['used_motion']}")
-            return
-        self._finish_frame(frame, fid, timestamp, Tcw, bind, n_inl)
+        with self.lock:
+            if anchor != self._anchor:
+                return  # the frames in flight were dropped while this one was read
+            ok, Tcw, bind, n_inl, host = self._host_result(packed, local_ids, gen)
+            if not ok:
+                self._mark_lost(frame, fid, timestamp, self.last.Tcw,
+                                info=f"pre_fail n_pre={host['n_pre']} "
+                                     f"motion={host['used_motion']}")
+                return
+            self._finish_frame(frame, fid, timestamp, Tcw, bind, n_inl)
+
+    def _pop_pending(self, keep: int = 0):
+        """The oldest frame in flight while more than ``keep`` are, else None."""
+        with self.lock:
+            return self._pending.pop(0) if len(self._pending) > keep else None
+
+    def drop_in_flight(self):
+        """Discard the frames in flight and the device chain: the next frame
+        starts a new chain from the last applied pose."""
+        with self.lock:
+            self._pending.clear()
+            self._chain = None
+            self._anchor += 1
 
     def flush(self):
         """Apply the frames in flight (end of stream, mode switch)."""
-        while self._pending:
-            self._apply_result(*self._pending.pop(0))
+        while (entry := self._pop_pending()) is not None:
+            self._apply_result(*entry)
             if self.state != TrackingState.OK:
-                self._pending.clear()
-        self._chain = None
+                self.drop_in_flight()
+        with self.lock:
+            self._chain = None
 
     def _local_candidates(self, bind):
         """Padded local-map candidate ids: points of the covisibility
@@ -585,7 +682,7 @@ class Tracker:
         if not ok:
             return
         self.last = TrackedFrame(data=frame, Tcw=Tcw, bind=bind, frame_id=fid,
-                                 timestamp=timestamp)
+                                 timestamp=timestamp, gen=self.store.pt_gen.copy())
         Tcw2, bind2, n = self._track_local_map(frame, Tcw, bind)
         if n < self.cfg.th.min_localmap_inliers:
             return
@@ -605,15 +702,15 @@ class Tracker:
 
     def reset(self):
         """Full tracker reset (Tracking::Reset, Tracking.cc:1133-1175)."""
-        self.state = TrackingState.NO_IMAGES_YET
-        self.last = None
-        self.init_ref = None
-        self.velocity = None
-        self._prev_Tcw = None
-        self._chain = None
-        self._pending = []
-        self.ref_kf = -1
-        self.last_kf_frame_id = 0
-        self.store.__post_init__()  # clear all map arrays
-        if self.on_reset is not None:
-            self.on_reset()
+        with self.lock:
+            self.state = TrackingState.NO_IMAGES_YET
+            self.last = None
+            self.init_ref = None
+            self.velocity = None
+            self._prev_Tcw = None
+            self.drop_in_flight()
+            self.ref_kf = -1
+            self.last_kf_frame_id = 0
+            self.store.__post_init__()  # clear all map arrays
+            if self.on_reset is not None:
+                self.on_reset()

@@ -4,10 +4,16 @@ Port of os1_tpu/utils/profiling.py.
 Stages are timed on the host clock. Device work is asynchronous, so with
 ``sync=False`` a stage's time is its enqueue time unless the stage itself
 reads a result back; ``sync=True`` synchronises the current CUDA device at
-the end of every stage so that each stage owns its device time.
+the end of every stage so that each stage owns its device time (with the
+worker threads on, that waits for every thread's work: time the threaded
+mode unsynchronised).
+
+Both counters are exact when several threads update them (the tracker and
+the mapping, loop-closing and global-BA threads of the threaded mode).
 """
 from __future__ import annotations
 
+import threading
 import time
 from collections import defaultdict
 from contextlib import contextmanager
@@ -30,6 +36,7 @@ class StageTimer:
         self.totals: dict[str, float] = defaultdict(float)
         self.counts: dict[str, int] = defaultdict(int)
         self.sync = sync
+        self._lock = threading.Lock()
 
     @contextmanager
     def __call__(self, name: str):
@@ -39,11 +46,14 @@ class StageTimer:
         finally:
             if self.sync and torch.cuda.is_available():
                 torch.cuda.synchronize()
-            self.totals[name] += time.perf_counter() - t0
-            self.counts[name] += 1
+            dt = time.perf_counter() - t0
+            with self._lock:
+                self.totals[name] += dt
+                self.counts[name] += 1
 
     def report(self) -> str:
-        rows = sorted(self.totals.items(), key=lambda kv: -kv[1])
+        with self._lock:
+            rows = sorted(self.totals.items(), key=lambda kv: -kv[1])
         total = sum(self.totals.values()) or 1.0
         return "\n".join(
             f"{name:<28s} {tot:8.3f}s {self.counts[name]:6d}x "
@@ -52,8 +62,9 @@ class StageTimer:
         )
 
     def reset(self):
-        self.totals.clear()
-        self.counts.clear()
+        with self._lock:
+            self.totals.clear()
+            self.counts.clear()
 
 
 class HostReads:
@@ -62,17 +73,23 @@ class HostReads:
 
     def __init__(self):
         self.count = 0
+        self._lock = threading.Lock()
+
+    def tick(self) -> None:
+        """Count one read."""
+        with self._lock:
+            self.count += 1
 
     def numpy(self, t: torch.Tensor):
-        self.count += 1
+        self.tick()
         return t.detach().cpu().numpy()
 
     def numpy_all(self, ts):
         """One read of several results of the same device work: the first
         copy waits for the work, the rest find it done."""
-        self.count += 1
+        self.tick()
         return [t.detach().cpu().numpy() for t in ts]
 
     def item(self, t: torch.Tensor):
-        self.count += 1
+        self.tick()
         return t.item()

@@ -49,7 +49,7 @@ def announce(t) -> Announced:
 def fetch(a: Announced, reads: HostReads):
     """Wait for an announced copy and return it as numpy (a list for a
     tuple): one host read."""
-    reads.count += 1
+    reads.tick()
     if a.done is not None:
         a.done.synchronize()
     if isinstance(a.host, tuple):

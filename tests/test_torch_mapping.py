@@ -26,6 +26,11 @@ iterations): poses within 1e-4 (measured 1.5e-5), points within 1e-3
 (measured 1.5e-4), inlier masks exact. One whole LocalMapper.process: the
 same points, observations, culls and spanning tree; poses within 1e-4
 (measured 1.2e-7), points within 1e-3 (measured 5.4e-6).
+
+The viewer's far-point trackbar: ``System.set_far_parallax_param`` sets the
+mapper's threshold as the JAX package's does, and the same pass with the
+threshold at 0.999 gives the same ``pt_far_class`` in both packages (exact),
+with more umbralCosBajo points than at the default 0.9998.
 """
 import copy
 
@@ -263,3 +268,32 @@ def test_local_mapper_process_on_the_same_map(same_map):
     np.testing.assert_allclose(tst.kf_T, jst.kf_T, atol=1e-4)
     v = jst.pt_valid
     np.testing.assert_allclose(tst.pt_xyz[v], jst.pt_xyz[v], atol=1e-3)
+
+
+def test_far_parallax_param_matches_jax(runs, same_map):
+    """The viewer's parallax trackbar: System.set_far_parallax_param sets the
+    mapper's threshold as the JAX package's does, and a pass with it set
+    classes the new points' pt_far_class the same way in both packages."""
+    jsys, tsys = runs["jsys"], runs["tsys"]
+    try:
+        for param in (0, 500, 990, 997, 998, 1000):
+            jsys.set_far_parallax_param(param)
+            tsys.set_far_parallax_param(param)
+            assert tsys.mapper.far_cos_user == jsys.mapper.far_cos_user
+    finally:
+        jsys.set_far_parallax_param(1000)
+        tsys.set_far_parallax_param(1000)
+    kf, ref, jst, tst, jcfg, cfg = same_map
+    classes = []
+    for param in (1000, 990):
+        js_, ts_ = copy.deepcopy(jst), copy.deepcopy(tst)
+        jm, tm = _jax_mapper(js_, jcfg, ref), _port_mapper(ts_, cfg, ref)
+        jm.far_cos_user = tm.far_cos_user = 0.9 + param / 10000.0 if param < 998 else 0.9998
+        jm.process(kf)
+        tm.process(kf)
+        np.testing.assert_array_equal(ts_.pt_valid, js_.pt_valid)
+        np.testing.assert_array_equal(ts_.pt_far_class, js_.pt_far_class)
+        new = ts_.pt_valid & (ts_.pt_first_seq == ts_.kf_seq[kf])
+        classes.append(np.bincount(ts_.pt_far_class[new], minlength=4))
+    # The lower threshold (cos 0.999) moves new points into umbralCosBajo.
+    assert classes[1][1] > classes[0][1] and classes[1].sum() == classes[0].sum()

@@ -2,8 +2,10 @@
 package, at import time or while it runs frames in the shipped mode
 (pipelined, cooperative mapping, loop closing, the BoW database and the
 relocalizer), its Osmap persistence needs neither protobuf, PyYAML nor
-OpenCV, and its System refuses the options outside the ported slice and
-runs on the CPU only when asked to. No JAX is needed to run this file."""
+OpenCV, its shell (``io/``, ``viz/``, ``run_slam.py``) imports OpenCV only
+inside functions, and its System builds every ported mode (the worker
+threads included), refuses ``distributed=True`` and runs on the CPU only
+when asked to. No JAX is needed to run this file."""
 import ast
 import os
 import subprocess
@@ -27,6 +29,11 @@ import os1_tpu_torch.pipeline.local_mapping
 import os1_tpu_torch.pipeline.loop_closing
 import os1_tpu_torch.pipeline.relocalization
 import os1_tpu_torch.pipeline.workers
+import os1_tpu_torch.run_slam
+import os1_tpu_torch.io.config
+import os1_tpu_torch.io.datasets
+import os1_tpu_torch.io.video
+import os1_tpu_torch.viz.viewer
 import os1_tpu_torch.solvers.pnp
 import os1_tpu_torch.solvers.sim3_solver
 import os1_tpu_torch.utils.transfer
@@ -92,14 +99,18 @@ def _imports(tree, module_level=False):
 
 def test_no_module_imports_jax_or_the_jax_package():
     """Nothing in the port imports JAX or the JAX package; nothing under
-    ``io/`` imports protobuf, PyYAML or OpenCV when it is imported (the card's
-    machine has none of them)."""
+    ``io/`` or ``viz/`` and not ``run_slam.py`` imports protobuf, PyYAML or
+    OpenCV when it is imported (the card's machine has none of them), and
+    OpenCV is imported nowhere else."""
     offenders = []
     for path in _py_files():
         tree = ast.parse(open(path).read(), path)
         banned = [(("jax", "jaxlib", "os1_tpu"), False)]
-        if os.path.relpath(path, PKG).startswith("io" + os.sep):
+        rel = os.path.relpath(path, PKG)
+        if rel.startswith(("io" + os.sep, "viz" + os.sep)) or rel == "run_slam.py":
             banned.append((("google", "yaml", "cv2"), True))
+        else:
+            banned.append((("cv2",), False))
         for tops, module_level in banned:
             for _, n in _imports(tree, module_level):
                 if n.split(".")[0] in tops:
@@ -119,11 +130,8 @@ def _tiny_config():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(enable_mapping=True, enable_loop_closing=True, pipelined=True, async_mapping=True),
     dict(enable_mapping=True, enable_loop_closing=True, coop_mapping=True, distributed=True),
-    dict(enable_mapping=True, enable_loop_closing=False, pipelined=True, async_mapping=True),
     dict(enable_mapping=True, enable_loop_closing=False, coop_mapping=True, distributed=True),
-    dict(enable_mapping=False, enable_loop_closing=False, async_mapping=True),
     dict(enable_mapping=False, enable_loop_closing=False, distributed=True),
 ])
 def test_system_refuses_options_outside_the_slice(kw):
@@ -139,20 +147,37 @@ def test_system_refuses_options_outside_the_slice(kw):
     dict(pipelined=True),
     dict(coop_mapping=True),
     dict(enable_mapping=False, pipelined=True, coop_mapping=True),
+    dict(enable_mapping=True, enable_loop_closing=True, pipelined=True, async_mapping=True),
+    dict(enable_mapping=True, enable_loop_closing=False, pipelined=True, async_mapping=True),
+    dict(enable_mapping=False, enable_loop_closing=False, async_mapping=True),
 ])
 def test_system_accepts_the_ported_modes(kw):
-    """Loop closing on, the default, in every ported mode."""
+    """Every ported mode, loop closing on unless turned off; with the worker
+    threads on, the LocalMapping thread (and the LoopClosing thread with loop
+    closing) run until shutdown."""
     from os1_tpu_torch.pipeline import System
 
     s = System(_tiny_config(), device="cpu", **kw)
-    assert s.tracker.pipelined == kw.get("pipelined", False)
-    assert (s.coop is not None) == kw.get("coop_mapping", False)
-    assert s.tracker.relocalizer is s.relocalizer and s.relocalizer.db is s.db
-    assert s.mapper.on_cull_keyframe == s.db.erase
-    assert s.loop_closer.db is s.db and s.loop_closer.store is s.store
-    assert s.tracker.loop_closing_active() is False
-    if s.coop is not None:
-        assert s.coop.loop_steps is not None
+    try:
+        assert s.tracker.pipelined == kw.get("pipelined", False)
+        assert (s.coop is not None) == kw.get("coop_mapping", False)
+        assert (s.mapping_worker is not None) == kw.get("async_mapping", False)
+        assert s.tracker.relocalizer is s.relocalizer and s.relocalizer.db is s.db
+        assert s.mapper.on_cull_keyframe == s.db.erase
+        assert s.loop_closer.db is s.db and s.loop_closer.store is s.store
+        assert s.tracker.loop_closing_active() is False
+        assert s.tracker.lock is s.mapper.lock is s.loop_closer.lock is s.lock
+        if s.coop is not None:
+            assert s.coop.loop_steps is not None
+        if s.mapping_worker is not None:
+            assert s.mapping_worker._thread.is_alive()
+            assert (s.loop_worker is not None) == kw["enable_loop_closing"]
+            assert s.loop_closer.mapping_worker is s.mapping_worker
+    finally:
+        s.shutdown()
+    if s.mapping_worker is not None:
+        assert not s.mapping_worker._thread.is_alive()
+        assert s.loop_worker is None or not s.loop_worker._thread.is_alive()
 
 
 def test_persistence_is_refused(tmp_path):
