@@ -53,11 +53,29 @@ fails (non-zero exit, no final result line) if any phase fails:
      candidate with 20 LM inliers, the verdicts with and without the guard)
      and the first pass's loop stages on the host clock. Then one global BA
      chunk on the final map, timed, with its peak device memory;
- 11. orbit with loop closing on: bench.py's own configuration (the shipped
+ 11. mesh, the distributed back end on one card (8 shards on cuda:0 standing
+     for the reference's 8-device mesh): (a) bench.py's loop sequence in the
+     shipped mode with loop closing on over the mesh, System(cfg,
+     pipelined=True, coop_mapping=True, distributed=True, mesh=...), one pass,
+     gated as [loop] (ATE <= 0.22, a loop closed, every keyframe materialized
+     and the scheduler idle after flush, launches of every kernel on the path)
+     and on local BAs, global BA chunks and essential graphs routed through
+     the mesh (counted), printed beside [loop]'s first pass; (b) the [loop]
+     map's global BA single-device, over the 1-D mesh and over
+     two_level_backend(2) (after the first 5-iteration chunk, poses within
+     5e-4 and points within 5e-3 of single-device; after 20 iterations, the
+     cost within 1e-4 of itself and 99.9% of the inlier flags equal), and the pass's first essential graph single-device and
+     over the edge mesh (within 2e-3), each mesh solve rerun bit-identical,
+     with device ms per chunk by CUDA events and the bytes each reduction
+     sums; (c) DistKeyFrameDatabase over 8 shards loaded with the [loop]
+     system's keyframe bows, every live keyframe queried: the ids equal to
+     the host database's on the same bows cut to W_CAP words (up to
+     near-ties), the scores within 1e-5, ms a query beside the host's;
+ 12. orbit with loop closing on: bench.py's own configuration (the shipped
      mode, loop closing on) over the 300-frame orbit, one pass, gated on ATE
      <= 0.2 and OK on every frame from the first OK one; a loop closed there
      is reported, not gated;
- 12. osmap, Osmap persistence on the [loop] first pass's map (A) and the
+ 13. osmap, Osmap persistence on the [loop] first pass's map (A) and the
      [orbit-loop] system's (O): A saved with options 0, FEATURES_FILE_DELIMITED
      and ONLY_MAPPOINTS_FEATURES and O with 0 (header counts = live counts,
      nothing pending; bytes and ms printed); A reloaded into a bare MapStore,
@@ -70,7 +88,7 @@ fails (non-zero exit, no final result line) if any phase fails:
      aligned, more keyframes, finite, the joint keyframe ATE under 5% of the
      path, fused-match launches in the Sim3 evaluations; O merged into a fresh
      load of A: rolled back, the counts unchanged;
- 13. threaded, run_slam's default mode (the reference's thread topology):
+ 14. threaded, run_slam's default mode (the reference's thread topology):
      System(cfg, pipelined=True, async_mapping=True), loop closing on, one
      pass over the bench orbit (after [orbit-loop]; init by frame 10, OK on
      85% of the frames from the first OK one, ATE <= 0.2) and one over the
@@ -82,7 +100,7 @@ fails (non-zero exit, no final result line) if any phase fails:
      thread, the map-lock wait by thread and the worker queue depths, beside
      the shipped mode's frames/s over the same frames ([orbit-loop], [loop]'s
      first pass). The trajectory is not deterministic and not gated;
- 14. cli: ``python3 -m os1_tpu_torch.run_slam --synthetic --frames 120
+ 15. cli: ``python3 -m os1_tpu_torch.run_slam --synthetic --frames 120
      --save-trajectory T --save-map M`` as a subprocess (the threaded
      default): 120 frames, final state OK, 90% tracked, the ATE reported, the
      files written; then ``--load-map M --localization --frames 30``: it
@@ -148,6 +166,20 @@ GATE_MERGE_ATE = 0.05  # of the path length (tests/test_merge.py:56-64)
 GATE_OK_THREADED = 0.85  # the threaded mode's bound (tests/test_async_pipeline.py:157)
 CLI_FRAMES, CLI_LOC_FRAMES = 120, 30  # [cli]: the synthetic run, the localization run
 GATE_CLI_TRACKED = 0.9
+MESH_SHARDS = 8  # the reference's 8-device mesh (tests/conftest.py), as shards on one card
+MESH_TWO_LEVEL = 2  # two_level_backend's hosts in [mesh]
+GATE_MESH_POSE = 5e-4  # mesh vs single-device BA (tests/test_parallel.py:80-83)
+GATE_MESH_POINTS = 5e-3
+# The global BA's poses and points are held to the two tolerances above after
+# its first chunk; after all its iterations, to the cost and the inlier flags.
+# Late in the solve an LM step changes the cost by about 1e-7 of itself, so
+# the order of a sum can flip an accept, and a two-view point whose depth
+# along its ray is nearly free then moves by up to 1.0 while the cost agrees
+# to 1e-6 (the [loop] map on the H100: 1 of 4,483 points over 5e-3).
+GATE_MESH_COST = 1e-4  # relative, the final robust cost
+GATE_MESH_INLIERS = 0.999
+GATE_MESH_GRAPH = 2e-3  # mesh vs single-device essential graph (tests/test_parallel.py:169-171)
+GATE_DB_SCORE = 1e-5
 HAMMING_SHAPES = ((1024, 1024), (4096, 1024), (1000, 777))
 # Fused match problems (batch, N, M, A shared, dense gate): the motion and
 # local-map searches, a ragged one, the smallest, K9's fusion lanes and K8's
@@ -572,7 +604,7 @@ def phase_patches():
 
 
 def build_system(device, mapping: bool, shipped: bool = False, loop: bool = False,
-                 threaded: bool = False):
+                 threaded: bool = False, mesh=None):
     from os1_tpu_torch.features.orb import OrbConfig
     from os1_tpu_torch.geometry.camera import Camera
     from os1_tpu_torch.map.store import MapConfig
@@ -588,8 +620,9 @@ def build_system(device, mapping: bool, shipped: bool = False, loop: bool = Fals
         return System(cfg, pipelined=True, async_mapping=True, enable_loop_closing=loop,
                       device=device)
     if shipped:
+        dist = dict(distributed=True, mesh=mesh) if mesh is not None else {}
         return System(cfg, pipelined=True, coop_mapping=True, enable_loop_closing=loop,
-                      device=device)
+                      device=device, **dist)
     return System(cfg, enable_mapping=mapping, enable_loop_closing=False, pipelined=False,
                   device=device)
 
@@ -623,7 +656,7 @@ def _sync(device):
 
 
 def drive(frames, mapping: bool, device="cuda", timer=None, shipped: bool = False,
-          loop: bool = False, on_build=None, threaded: bool = False):
+          loop: bool = False, on_build=None, threaded: bool = False, mesh=None):
     """Track ``frames`` through System.track_monocular, with every kernel
     launch count set to 0 just before and read just after. Returns the
     system, per-frame latency, OK flags, host reads and launch counts.
@@ -636,7 +669,7 @@ def drive(frames, mapping: bool, device="cuda", timer=None, shipped: bool = Fals
     from os1_tpu_torch.pipeline import TrackingState
 
     pipelined = shipped or threaded
-    sys_ = build_system(device, mapping, shipped, loop, threaded)
+    sys_ = build_system(device, mapping, shipped, loop, threaded, mesh)
     if timer is not None:
         sys_.set_timer(timer)
     if on_build is not None:
@@ -1093,7 +1126,7 @@ def phase_loop(frames, poses, device="cuda"):
     host = sys1.timer
     stages_host = {k: dict(total_s=host.totals[k], calls=host.counts[k],
                            ms_per_call=host.totals[k] / host.counts[k] * 1e3)
-                   for k in LOOP_STAGES if host.counts.get(k)}
+                   for k in ("lm.ba.dispatch",) + LOOP_STAGES if host.counts.get(k)}
     log("[loop] loop stages, ms a call (host clock, not synchronised, first pass): " + "; ".join(
         f"{k} {v['ms_per_call']:.3f} ({v['calls']} calls)" for k, v in stages_host.items()))
     log("[loop] stage table (synchronised stages, second pass):\n" + timer.report())
@@ -1149,6 +1182,326 @@ def _gba_chunk(sys_, device):
     if not row["finite"]:
         raise RuntimeError("loop: the global BA chunk gave non-finite values")
     return row
+
+
+def _mesh(device, axes=("points",)):
+    """MESH_SHARDS positions on one device, a 1-D mesh over ``axes``."""
+    import torch
+
+    from os1_tpu_torch.parallel import Mesh
+
+    return Mesh(np.full(MESH_SHARDS, torch.device(device), dtype=object), axes)
+
+
+def _count_mesh_solves(sys_, tally):
+    """Route the system's solves through counting views of its backend: the
+    mapper's ``shard`` (one a mesh-routed local BA) and the loop closer's
+    ``iterate`` (one a global BA chunk); the methods are the backend's."""
+    import types
+
+    be = sys_.mesh_backend
+
+    def counted(fn, key):
+        def wrapper(*a, **kw):
+            tally[key] += 1
+            return fn(*a, **kw)
+        return wrapper
+
+    view = dict(mesh=be.mesh, shard=be.shard, begin=be.begin, iterate=be.iterate,
+                reclassify=be.reclassify, result=be.result)
+    sys_.mapper.mesh_backend = types.SimpleNamespace(
+        **dict(view, shard=counted(be.shard, "mesh_local_ba")))
+    sys_.loop_closer.mesh_backend = types.SimpleNamespace(
+        **dict(view, iterate=counted(be.iterate, "mesh_gba_chunks")))
+
+
+def _event_run(fn, device):
+    """(fn(), device ms between two CUDA events around it); on the CPU, the
+    host clock's ms."""
+    import torch
+
+    if torch.device(device).type != "cuda":
+        return _timed(device, fn)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def _mesh_gba_parity(sys_, device):
+    """The [loop] map's global BA (the same assembly as the loop closer's)
+    single-device, over the 1-D mesh and over two_level_backend(2), GBA_ITERS
+    iterations in GBA_CHUNK chunks, each chunk timed by CUDA events; the 1-D
+    mesh run twice."""
+    import torch
+
+    from os1_tpu_torch.optim import ba_begin, ba_iterate, ba_result
+    from os1_tpu_torch.parallel import MeshBABackend, two_level_backend
+    from os1_tpu_torch.pipeline.local_mapping import assemble_global_ba
+    from os1_tpu_torch.pipeline.loop_closing import GBA_CHUNK, GBA_ITERS
+
+    prob, _ = assemble_global_ba(sys_.store, sys_.cfg, device)
+    be1 = MeshBABackend(_mesh(device))
+    be2 = two_level_backend(MESH_TWO_LEVEL, [torch.device(device)] * MESH_SHARDS)
+    single_gather = lambda sp, st: (st.cam_T, st.points, st.cost)  # noqa: E731
+    forms = {"single": (lambda p: p, ba_begin, ba_iterate, ba_result, single_gather),
+             "mesh_1d": (be1.shard, be1.begin, be1.iterate, be1.result, be1.gather),
+             "mesh_1d_rerun": (be1.shard, be1.begin, be1.iterate, be1.result, be1.gather),
+             "two_level": (be2.shard, be2.begin, be2.iterate, be2.result, be2.gather)}
+    out = {}
+    for name, (shard, begin, iterate, result, gather) in forms.items():
+        _sync(device)
+        sp = shard(prob)
+        state = begin(sp)
+        chunk_ms = []
+        for c in range(GBA_ITERS // GBA_CHUNK):
+            state, ms = _event_run(lambda: iterate(sp, state, GBA_CHUNK), device)
+            chunk_ms.append(ms)
+            if c == 0:
+                first_chunk = gather(sp, state)
+        res = result(sp, state)
+        out[name] = (res, chunk_ms, first_chunk)
+    single, _, single_first = out["single"]
+    valid = prob.obs_valid
+    C, P = prob.cam_T.shape[0], prob.points.shape[0]
+    row = dict(cameras=C, points=P, observations=int(valid.sum()), shards=MESH_SHARDS,
+               iters=GBA_ITERS,
+               psum_bytes_per_iteration=dict(S=C * C * 36 * 4, b_red=C * 6 * 4, cost=4,
+                                             parts=MESH_SHARDS))
+    row["psum_bytes_per_iteration"]["summed"] = MESH_SHARDS * (C * C * 36 * 4 + C * 6 * 4 + 4)
+    for name, (res, chunk_ms, first) in out.items():
+        dp = (res.points - single.points).abs().amax(dim=1)
+        row[name] = dict(
+            chunk_ms=min(chunk_ms), chunk_ms_runs=chunk_ms,
+            first_chunk_cam_T_max_abs_diff=float((first[0] - single_first[0]).abs().max()),
+            first_chunk_points_max_abs_diff=float((first[1] - single_first[1]).abs().max()),
+            cam_T_max_abs_diff=float((res.cam_T - single.cam_T).abs().max()),
+            points_max_abs_diff=float(dp.max()),
+            points_p999_abs_diff=float(torch.quantile(dp, 0.999)),
+            points_over_gate=int((dp > GATE_MESH_POINTS).sum()),
+            cost_rel_diff=float((res.cost - single.cost).abs() / single.cost.abs()),
+            inlier_agreement=float((res.obs_inlier == single.obs_inlier)[valid].float().mean()),
+            finite=bool(torch.isfinite(res.cam_T).all() and torch.isfinite(res.points).all()))
+    a, b = out["mesh_1d"][0], out["mesh_1d_rerun"][0]
+    row["rerun_identical"] = all(torch.equal(x, y) for x, y in zip(a, b))
+    return row
+
+
+def _mesh_graph_parity(args, device):
+    """The essential graph of the [mesh] pass's first correction (its
+    recorded inputs) single-device and over the edge mesh, the mesh twice,
+    each timed by CUDA events."""
+    import torch
+
+    from os1_tpu_torch.optim.pose_graph import optimize_pose_graph
+    from os1_tpu_torch.parallel import distributed_pose_graph
+
+    g = {k: v for k, v in args.items() if k not in ("mesh", "iters", "edge_valid")}
+    single, single_ms = _event_run(lambda: optimize_pose_graph(**g, iters=args["iters"]),
+                                   device)
+    emesh = _mesh(device, ("edges",))
+    runs = [_event_run(lambda: distributed_pose_graph(**g, edge_valid=args["edge_valid"],
+                                                      mesh=emesh, iters=args["iters"]),
+                       device)
+            for _ in range(2)]
+    K, E = g["S"].shape[0], int(g["edge_i"].shape[0])
+    return dict(keyframes=K, edges=E, iters=args["iters"], single_ms=single_ms,
+                mesh_ms=[ms for _, ms in runs],
+                max_abs_diff=float((runs[0][0] - single).abs().max()),
+                rerun_identical=bool(torch.equal(runs[0][0], runs[1][0])),
+                finite=bool(torch.isfinite(runs[0][0]).all()),
+                psum_bytes_per_iteration=dict(H=K * K * 49 * 4, b=K * 7 * 4, cost=4,
+                                              parts=MESH_SHARDS,
+                                              summed=MESH_SHARDS * (K * K * 49 * 4 + K * 28 + 4)))
+
+
+def _mesh_database(sys_, device):
+    """DistKeyFrameDatabase over MESH_SHARDS positions loaded with the [loop]
+    system's keyframe bows; each live keyframe queried (itself excluded)
+    against the host database holding the same bows cut to W_CAP words (the
+    reference's parity contract), and beside the whole bows' host query."""
+    from os1_tpu_torch.parallel import DistKeyFrameDatabase
+    from os1_tpu_torch.parallel.dist_database import W_CAP
+    from os1_tpu_torch.vocab.database import KeyFrameDatabase, SparseBow
+
+    host = sys_.db
+    live = [k for k in range(MAP_KEYFRAMES) if host.active[k] and host.bows[k] is not None]
+    dist = DistKeyFrameDatabase(_mesh(device, ("kfs",)), MAP_KEYFRAMES)
+    capped = KeyFrameDatabase(host.vocab, MAP_KEYFRAMES)
+    cap = {k: SparseBow(host.bows[k].words[:W_CAP], host.bows[k].weights[:W_CAP]) for k in live}
+    for k in live:
+        dist.add(k, host.bows[k])
+        capped.add(k, cap[k])
+    _, publish_ms = _timed(device, dist.publish)
+    rows, t_dist, t_capped, t_host = [], [], [], []
+    for k in live:
+        t0 = time.perf_counter()
+        ids, scores = dist.query(host.bows[k], exclude=[k])
+        t_dist.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        capped.query(cap[k], exclude=[k])
+        t_capped.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        h_ids, _ = host.query(host.bows[k], exclude=[k])
+        t_host.append(time.perf_counter() - t0)
+        ref = np.array([capped.score_kf(cap[k], j) if j != k else 0.0 for j in live], np.float32)
+        order = np.argsort(-ref, kind="stable")
+        order = order[ref[order] > 0][:64]
+        ref_ids, ref_scores = np.asarray(live)[order], ref[order]
+        exact = bool(np.array_equal(ids, ref_ids))
+        close = (len(ids) == len(ref_ids) and set(ids.tolist()) == set(ref_ids.tolist())
+                 and bool(np.allclose(scores, ref_scores, atol=GATE_DB_SCORE, rtol=0)))
+        rows.append(dict(kf=k, n=len(ids), ids_exact=exact, ids_within_ties=exact or close,
+                         max_score_diff=float(np.abs(scores - ref_scores).max())
+                         if len(ids) == len(ref_ids) and len(ids) else 0.0,
+                         top_equals_whole_bow_host=bool(len(ids) and len(h_ids)
+                                                        and ids[0] == h_ids[0])))
+    n_words = [len(host.bows[k].words) for k in live]
+    return dict(keyframes=len(live), shards=MESH_SHARDS, w_cap=W_CAP,
+                words_per_bow=[min(n_words), max(n_words)],
+                bows_over_cap=sum(n > W_CAP for n in n_words), publish_ms=publish_ms,
+                query_ms=float(np.median(t_dist) * 1e3),
+                host_capped_query_ms=float(np.median(t_capped) * 1e3),
+                host_query_ms=float(np.median(t_host) * 1e3),
+                ids_exact=sum(r["ids_exact"] for r in rows),
+                ids_within_ties=sum(r["ids_within_ties"] for r in rows),
+                max_score_diff=max(r["max_score_diff"] for r in rows),
+                top_equals_whole_bow_host=sum(r["top_equals_whole_bow_host"] for r in rows),
+                rows=rows)
+
+
+def phase_mesh(frames, poses, sys_loop, loop_ref, device="cuda"):
+    """The distributed back end on one card: (a) bench.py's loop sequence in
+    the shipped mode over an 8-shard mesh, System(distributed=True, mesh=...),
+    gated as [loop] and on mesh-routed local BAs, global BA chunks and
+    essential graphs; (b) the [loop] map's global BA and the pass's essential
+    graph single-device and on the meshes, compared and rerun; (c) the sharded
+    keyframe database on the [loop] system's bows."""
+    from os1_tpu_torch.pipeline import loop_closing
+
+    tally = dict(sim3_evals=0, sim3_fused_launches=0, mesh_local_ba=0, mesh_gba_chunks=0,
+                 mesh_essential=0)
+    graphs = []
+    dpg = loop_closing.distributed_pose_graph
+
+    def counted_graph(*a, **kw):
+        tally["mesh_essential"] += 1
+        if not graphs:
+            graphs.append(kw)
+        return dpg(*a, **kw)
+
+    def on_build(s):
+        _count_sim3_launches(s, tally)
+        _count_mesh_solves(s, tally)
+
+    loop_closing.distributed_pose_graph = counted_graph
+    try:
+        _peak_mem(device, reset=True)
+        sys_, lat, ok, reads, launches = drive(frames, mapping=True, device=device, shipped=True,
+                                               loop=True, on_build=on_build,
+                                               mesh=_mesh(device))
+    finally:
+        loop_closing.distributed_pose_graph = dpg
+    res, traj = summarize(sys_, lat, ok, reads, launches, poses, stretch_end=len(frames))
+    lc = sys_.loop_closer
+    first = res["init_frame"]
+    host = sys_.timer
+    stages = {k: dict(total_s=host.totals[k], calls=host.counts[k],
+                      ms_per_call=host.totals[k] / host.counts[k] * 1e3)
+              for k in ("lm.ba.dispatch",) + LOOP_STAGES if host.counts.get(k)}
+    res.update(tally, peak_mem_bytes=_peak_mem(device), frames=len(frames),
+               wall_fps=len(frames) / sys_.wall_s, sha256=_traj_sha(traj),
+               ok_fraction=float(ok[first:].mean()) if first < len(ok) else 0.0,
+               n_loops_closed=lc.n_loops_closed, loop_edges=[list(e) for e in lc.loop_edges],
+               idle_after_flush=(not sys_._pending_frames and not sys_.coop.busy()
+                                 and not sys_.tracker._pending), stages_host=stages)
+    _log_path("mesh", res)
+    log(f"[mesh] 8 shards on {device}: whole run incl. flush {sys_.wall_s:.3f}s = "
+        f"{res['wall_fps']:.3f} frames/s; OK fraction {res['ok_fraction']:.4f}; loss events "
+        f"{res['loss_log']}; loops closed {res['n_loops_closed']} (edges {res['loop_edges']}); "
+        f"mesh-routed local BAs {tally['mesh_local_ba']}, global BA chunks "
+        f"{tally['mesh_gba_chunks']}, essential graphs {tally['mesh_essential']}; "
+        f"{tally['sim3_evals']} Sim3 evaluations with {tally['sim3_fused_launches']} fused-match "
+        f"launches; idle after flush {res['idle_after_flush']}")
+    ref_stages = loop_ref["stages_host"]
+    first_ref = loop_ref["first"]
+    log(f"[mesh] beside [loop]'s first pass (single device, same frames): frames/s "
+        f"{res['fps_ok']:.3f} vs {first_ref['fps_ok']:.3f}; p50 {res['p50_ms']:.3f} vs "
+        f"{first_ref['p50_ms']:.3f} ms; p99 {res['p99_ms']:.3f} vs {first_ref['p99_ms']:.3f} ms; "
+        + "; ".join(f"{k} {stages[k]['ms_per_call']:.3f} ({stages[k]['calls']} calls) vs "
+                    + (f"{ref_stages[k]['ms_per_call']:.3f} ({ref_stages[k]['calls']} calls)"
+                       if k in ref_stages else "not run")
+                    for k in ("lm.ba.dispatch", "loop.gba.chunk", "loop.essential")
+                    if k in stages) + " ms a call, host clock")
+    fails = []
+    if not res["ate"] <= GATE_ATE_LOOP:
+        fails.append(f"ATE {res['ate']} > {GATE_ATE_LOOP}")
+    if res["n_loops_closed"] < GATE_MIN_LOOPS:
+        fails.append(f"{res['n_loops_closed']} loops closed < {GATE_MIN_LOOPS}")
+    if not res["finite"]:
+        fails.append("non-finite or misshaped poses")
+    if not res["idle_after_flush"]:
+        fails.append("the scheduler busy after flush")
+    for k in ("mesh_local_ba", "mesh_gba_chunks", "mesh_essential"):
+        if tally[k] <= 0:
+            fails.append(f"{k}: no solve routed through the mesh")
+    _launch_gate(res, fails)
+    if fails:
+        raise RuntimeError("mesh pipeline failed: " + "; ".join(fails))
+
+    clock = "CUDA events" if device != "cpu" else "host clock"
+    gba = _mesh_gba_parity(sys_loop, device)
+    log(f"[mesh] global BA of the [loop] map: {gba['cameras']} cameras, {gba['points']} points, "
+        f"{gba['observations']} observations; psum per LM iteration: S {gba['psum_bytes_per_iteration']['S']} B "
+        f"+ b_red {gba['psum_bytes_per_iteration']['b_red']} B + cost 4 B a part, "
+        f"{gba['psum_bytes_per_iteration']['summed']} B summed over {MESH_SHARDS} parts")
+    for name in ("single", "mesh_1d", "mesh_1d_rerun", "two_level"):
+        r = gba[name]
+        log(f"[mesh]   {name}: chunk of 5 iterations {r['chunk_ms']:.3f} ms (runs "
+            f"{', '.join(f'{t:.3f}' for t in r['chunk_ms_runs'])}; {clock}); vs single "
+            f"after the first chunk max|dcam_T| {r['first_chunk_cam_T_max_abs_diff']:.3e}, "
+            f"max|dpoints| {r['first_chunk_points_max_abs_diff']:.3e}; after "
+            f"{gba['iters']} iterations max|dcam_T| {r['cam_T_max_abs_diff']:.3e}, |dpoints| max "
+            f"{r['points_max_abs_diff']:.3e}, 99.9th percentile {r['points_p999_abs_diff']:.3e}, "
+            f"{r['points_over_gate']} points over {GATE_MESH_POINTS}; cost relative diff "
+            f"{r['cost_rel_diff']:.3e}; inlier agreement {r['inlier_agreement']:.6f}")
+    log(f"[mesh]   mesh rerun bit-identical {gba['rerun_identical']}")
+    graph = _mesh_graph_parity(graphs[0], device)
+    log(f"[mesh] essential graph of the pass's first correction: {graph['keyframes']} keyframes, "
+        f"{graph['edges']} edges, {graph['iters']} iterations; single {graph['single_ms']:.3f} "
+        f"ms, mesh {', '.join(f'{t:.3f}' for t in graph['mesh_ms'])} ms ({clock}); "
+        f"max|dS| {graph['max_abs_diff']:.3e}; rerun bit-identical {graph['rerun_identical']}; "
+        f"psum per iteration H {graph['psum_bytes_per_iteration']['H']} B a part, "
+        f"{graph['psum_bytes_per_iteration']['summed']} B summed")
+    db = _mesh_database(sys_loop, device)
+    log(f"[mesh] sharded keyframe database: {db['keyframes']} keyframes over {MESH_SHARDS} "
+        f"shards, {db['words_per_bow']} words a bow ({db['bows_over_cap']} over W_CAP "
+        f"{db['w_cap']}); ids equal to the host's on the capped bows: {db['ids_exact']} exactly, "
+        f"{db['ids_within_ties']} within near-ties, of {db['keyframes']} queries; max score "
+        f"diff {db['max_score_diff']:.3e}; top id equal to the whole-bow host query's "
+        f"{db['top_equals_whole_bow_host']}; ms a query (host clock, median): sharded "
+        f"{db['query_ms']:.3f}, host capped {db['host_capped_query_ms']:.3f}, host whole "
+        f"{db['host_query_ms']:.3f}; publish {db['publish_ms']:.3f} ms")
+    for name in ("mesh_1d", "two_level"):
+        r = gba[name]
+        if not (r["finite"] and r["first_chunk_cam_T_max_abs_diff"] <= GATE_MESH_POSE
+                and r["first_chunk_points_max_abs_diff"] <= GATE_MESH_POINTS
+                and r["cost_rel_diff"] <= GATE_MESH_COST
+                and r["inlier_agreement"] >= GATE_MESH_INLIERS):
+            fails.append(f"global BA {name} disagrees with single-device")
+    if not gba["rerun_identical"]:
+        fails.append("the mesh global BA rerun differs")
+    if not (graph["finite"] and graph["max_abs_diff"] <= GATE_MESH_GRAPH):
+        fails.append("the mesh essential graph disagrees with single-device")
+    if not graph["rerun_identical"]:
+        fails.append("the mesh essential graph rerun differs")
+    if db["ids_within_ties"] != db["keyframes"] or db["max_score_diff"] > GATE_DB_SCORE:
+        fails.append("the sharded database disagrees with the host database")
+    if fails:
+        raise RuntimeError("mesh failed: " + "; ".join(fails))
+    return dict(pipeline=res, gba=gba, graph=graph, database=db)
 
 
 def phase_orbit_loop(frames, poses, device="cuda"):
@@ -1640,6 +1993,7 @@ def main() -> int:
     out["loop"], sys_a = phase_loop(frames, poses)
     out["threaded_loop"] = phase_threaded("loop", frames, poses, out["loop"]["first"])
     out["osmap"] = phase_osmap(sys_a, sys_o, frames, poses)
+    out["mesh"] = phase_mesh(frames, poses, sys_a, out["loop"])
     del sys_a, sys_o
     out["cli"] = phase_cli()
     out["seconds"] = time.perf_counter() - t_start

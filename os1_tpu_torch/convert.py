@@ -1,6 +1,6 @@
 """State carried across from the JAX package (the port has no weights: its
 state is calibration, extractor tables, frames, the map, the place-recognition
-database and the loop closer's memory).
+databases, host and sharded, and the loop closer's memory).
 
 Each function takes plain numpy arrays, or any object whose fields convert
 with ``np.asarray`` (such as the reference package's NamedTuples and
@@ -17,6 +17,7 @@ from .features.orb import FrameFeatures, OrbConfig
 from .geometry.camera import Camera
 from .map.mirror import to_device
 from .map.store import MapConfig, MapStore
+from .parallel.dist_database import DistKeyFrameDatabase
 from .pipeline.frame import FrameData, pack_host
 from .vocab.database import KeyFrameDatabase, SparseBow
 
@@ -93,3 +94,14 @@ def copy_loop_state(src, dst) -> None:
     dst.consistent_groups = [({int(k) for k in g}, int(c)) for g, c in src.consistent_groups]
     dst.last_loop_kf = int(src.last_loop_kf)
     dst.n_loops_closed = int(src.n_loops_closed)
+
+
+def dist_database_from_numpy(src, mesh):
+    """Port DistKeyFrameDatabase over the port's ``mesh`` holding the padded
+    rows of a sharded database with the reference's fields (``words``,
+    ``weights``, ``active``, ``max_keyframes``)."""
+    db = DistKeyFrameDatabase(mesh, int(src.max_keyframes))
+    db.words[:] = np.asarray(src.words, np.int32)
+    db.weights[:] = np.asarray(src.weights, np.float32)
+    db.active[:] = np.asarray(src.active, bool)
+    return db

@@ -24,8 +24,11 @@ Global BA, which loop closing runs after every corrected loop, is here too:
 the keyframes and points created meanwhile, :func:`global_bundle_adjustment`
 is both in one call.
 
-Not ported: the mesh-sharded BA back end and the host-upload (mirror-less)
-paths.
+With a mesh backend (``mesh_backend``, ``parallel.MeshBABackend``, wired by
+System), local BA runs landmark-sharded over the mesh, one sum of the reduced
+camera system per LM iteration; the chunks and the abort stay as they are.
+
+Not ported: the host-upload (mirror-less) paths.
 """
 from __future__ import annotations
 
@@ -217,6 +220,10 @@ class LocalMapper:
     # disables the band).
     far_cos_user: float = 0.9998
     lock: MapLock = field(default_factory=MapLock)  # the map lock, wired by System
+    # Distributed solver backend (parallel.MeshBABackend), wired by System
+    # when a mesh is active: local BA runs landmark-sharded over it
+    # (BASELINE.json config 4). None: the single-device protocol.
+    mesh_backend: object = None
 
     # Fusion targets: 20 first-ring + 5x5 second-ring covisible keyframes.
     _T_FUSE = 46
@@ -228,6 +235,14 @@ class LocalMapper:
                                dtype=torch.float32, device=dev)
         self._intr = torch.as_tensor(i, device=dev)
         self._sigma2 = torch.as_tensor(self.cfg.sigma2_table, device=dev)
+
+    def _ba_fns(self):
+        """(shard, begin, iterate, reclassify, result): the resumable BA
+        protocol, single-device or mesh-sharded."""
+        be = self.mesh_backend
+        if be is None:
+            return lambda p: p, ba_begin, ba_iterate, ba_reclassify, ba_result
+        return be.shard, be.begin, be.iterate, be.reclassify, be.result
 
     def _dev(self, a: np.ndarray) -> torch.Tensor:
         return to_device(a, self.mirror.device)
@@ -541,19 +556,21 @@ class LocalMapper:
             if snap is None:
                 return
             prob, meta = self._local_ba_problem(*snap)
+        shard, begin, iterate, reclassify, result = self._ba_fns()
         with self.timer("lm.ba.dispatch"):
-            state = ba_begin(prob)
-            state = ba_iterate(prob, state, 5)
-            state = ba_reclassify(prob, state)
+            prob = shard(prob)
+            state = begin(prob)
+            state = iterate(prob, state, 5)
+            state = reclassify(prob, state)
         yield
         for _ in range(2):
             if self.abort_ba:  # a new keyframe waits: skip the remaining chunks
                 break
             with self.timer("lm.ba.dispatch"):
-                state = ba_iterate(prob, state, 5)
+                state = iterate(prob, state, 5)
             yield
         with self.timer("lm.ba.dispatch"):
-            res = ba_result(prob, state)
+            res = result(prob, state)
         yield
         yield
         with self.timer("lm.ba.fetch"):

@@ -17,7 +17,9 @@ stopped (LoopClosing.cc:413-431), and the global BA on a detached GlobalBA
 thread (LoopClosing.cc:584) that a newer loop aborts between chunks
 (mbStopGBA) and joins before it corrects.
 
-Not ported: the mesh-sharded solves (ROADMAP item 12).
+With a mesh backend (``mesh_backend``, wired by System), the global BA runs
+landmark-sharded over the mesh and the essential graph edge-sharded over the
+same devices (``parallel/``, BASELINE.json configs 4-5).
 """
 from __future__ import annotations
 
@@ -36,6 +38,7 @@ from ..matching import matchers
 from ..optim import ba_begin, ba_iterate, ba_result
 from ..optim.pose_graph import optimize_pose_graph
 from ..optim.sim3_opt import optimize_sim3
+from ..parallel import Mesh, distributed_pose_graph
 from ..solvers.initializer import GumbelSampler
 from ..solvers.sim3_solver import solve_sim3
 from ..utils import transfer
@@ -190,6 +193,9 @@ class LoopCloser:
     mapping_worker: object = None
     gba_spawned: int = 0  # global-BA threads started
     gba_errors: list = field(default_factory=list)  # exceptions of the GlobalBA thread
+    # Distributed solver backend (parallel.MeshBABackend), wired by System
+    # when a mesh is active. None: the single-device solves.
+    mesh_backend: object = None
 
     def __post_init__(self):
         self.device = torch.device(self.device)
@@ -328,15 +334,21 @@ class LoopCloser:
         if work is None:
             return
         prob, meta = work
-        state = ba_begin(prob)
+        be = self.mesh_backend
+        if be is not None:  # landmark-sharded over the mesh (configs 4-5)
+            begin, iterate, result = be.begin, be.iterate, be.result
+            prob = be.shard(prob)
+        else:
+            begin, iterate, result = ba_begin, ba_iterate, ba_result
+        state = begin(prob)
         for _ in range(GBA_ITERS // GBA_CHUNK):
             if self._stop_gba:
                 return
             with self.timer("loop.gba.chunk"):
-                state = ba_iterate(prob, state, GBA_CHUNK)
+                state = iterate(prob, state, GBA_CHUNK)
             yield
         with self.timer("loop.gba.fetch"):
-            res = ba_result(prob, state)
+            res = result(prob, state)
             dev = transfer.announce((res.cam_T, res.points, res.obs_inlier))
         yield
         yield
@@ -571,7 +583,13 @@ class LoopCloser:
         with self.timer("loop.essential"):
             g = transfer.upload(dict(S=S_nodes, kf_valid=st.kf_valid, fixed=fixed, edge_i=ei,
                                      edge_j=ej, edge_S=eS.astype(np.float32)), self.device)
-            S_opt = self.reads.numpy(optimize_pose_graph(**g))
+            if self.mesh_backend is not None:  # edge-sharded over the mesh (config 5)
+                mesh = Mesh(self.mesh_backend.mesh.devices.reshape(-1), ("edges",))
+                ones = torch.ones(len(ei), dtype=torch.bool, device=self.device)
+                S_opt = distributed_pose_graph(**g, edge_valid=ones, mesh=mesh, iters=20)
+            else:
+                S_opt = optimize_pose_graph(**g)
+            S_opt = self.reads.numpy(S_opt)
         # Poses written back and every point remapped through its first live
         # observer (Optimizer.cc:833-861), one affine transform per keyframe.
         new_T = sim3.to_se3(t(S_opt)).numpy()

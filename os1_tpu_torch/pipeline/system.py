@@ -18,8 +18,18 @@ returning. In every mode the system keeps a BoW keyframe database and
 relocalizes from LOST. ``enable_mapping=False`` is the localization-only mode;
 ``enable_loop_closing=False`` skips loop closing. Maps persist in the Osmap
 format (``save_map``, ``load_map``, and ``merge_session``, which aligns
-another session's map into this one). ``distributed=True`` is not ported yet
-and raises ``NotImplementedError`` naming its ROADMAP item.
+another session's map into this one).
+
+The distributed back end (``parallel/``) follows the reference's rule:
+``distributed=None`` shards whenever the system runs on a card and more than
+one card exists, ``True`` requires a mesh (``RuntimeError`` without one),
+``False`` forces a single device. With a mesh, local BA and global BA run
+landmark-sharded through the resumable protocol and the essential graph runs
+edge-sharded, one reduction an LM iteration, in every mode. ``mesh=`` gives
+the mesh explicitly, as a ``parallel.Mesh`` whose positions may share a
+device (eight shards on one card or on the CPU stand where the reference's
+tests put eight virtual devices). The synchronous global BA of
+``merge_session`` stays single-device, as the reference's does.
 
 The system runs on the card: ``device=None`` means ``cuda`` and raises when
 there is none; only an explicit ``device="cpu"`` runs it on the CPU.
@@ -36,6 +46,7 @@ from ..geometry import se3, sim3
 from ..io import osmap_io
 from ..map.mirror import DeviceMirror
 from ..map.store import MapStore
+from ..parallel import Mesh, MeshBABackend, default_mesh_backend
 from ..utils import transfer
 from ..utils.profiling import StageTimer
 from ..vocab.database import KeyFrameDatabase
@@ -52,11 +63,6 @@ from .workers import CoopScheduler, LoopWorker, MapLock, MappingWorker
 WAIT_S = 120.0  # longest wait for a worker to go idle or a global BA to end
 
 
-def _not_ported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported to os1_tpu_torch yet (ROADMAP.md queue 1, {item})")
-
-
 @dataclass
 class System:
     cfg: SlamConfig
@@ -65,7 +71,10 @@ class System:
     pipelined: bool = False
     async_mapping: bool = False  # the worker threads; coop_mapping is then ignored
     coop_mapping: bool = False
+    # None: shard over the cards when more than one exists; True: require a
+    # mesh; False: force a single device.
     distributed: bool | None = None
+    mesh: Mesh | None = None  # an explicit mesh for the distributed back end
     store: MapStore = None
     device: torch.device | str | None = None  # None: cuda, or raise without a card
     sampler: object = None  # two-view RANSAC hypothesis sampler (see Tracker)
@@ -75,8 +84,8 @@ class System:
     tracker: Tracker = field(init=False)
 
     def __post_init__(self):
-        if self.distributed:
-            raise _not_ported("The distributed back end (distributed=True)", "item 12")
+        if self.mesh is not None and self.distributed is False:
+            raise ValueError("a mesh was given with distributed=False")
         self.device = torch.device(self.device) if self.device is not None else default_device()
         if self.store is None:
             self.store = MapStore(self.cfg.map)
@@ -110,6 +119,15 @@ class System:
         self.tracker.loop_closing_active = lambda: self.loop_closer.closing_active
         self.mapper.on_cull_keyframe = self.db.erase
         self.tracker.on_new_keyframe = self._on_new_keyframe
+        # Distributed solver backend (configs 4-5); no quiet fallback.
+        self.mesh_backend = None
+        if self.mesh is not None:
+            self.mesh_backend = MeshBABackend(self.mesh)
+        elif self.distributed is not False:
+            self.mesh_backend = default_mesh_backend(self.device)
+            if self.mesh_backend is None and self.distributed is True:
+                raise RuntimeError("distributed=True requires more than one device")
+        self.mapper.mesh_backend = self.loop_closer.mesh_backend = self.mesh_backend
         self.tracker.on_reset = self._on_reset
         self._kf_count = 0
         # Keyframes whose feature arrays are still on the device:

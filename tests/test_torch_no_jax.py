@@ -3,9 +3,11 @@ package, at import time or while it runs frames in the shipped mode
 (pipelined, cooperative mapping, loop closing, the BoW database and the
 relocalizer), its Osmap persistence needs neither protobuf, PyYAML nor
 OpenCV, its shell (``io/``, ``viz/``, ``run_slam.py``) imports OpenCV only
-inside functions, and its System builds every ported mode (the worker
-threads included), refuses ``distributed=True`` and runs on the CPU only
-when asked to. No JAX is needed to run this file."""
+inside functions, its distributed back end (``parallel/``) imports neither,
+and its System builds every mode (the worker threads included), runs
+``distributed=True`` only over a mesh (the reference's RuntimeError without
+one) and runs on the CPU only when asked to. No JAX is needed to run this
+file."""
 import ast
 import os
 import subprocess
@@ -25,6 +27,12 @@ import os1_tpu_torch.geometry.sim3
 import os1_tpu_torch.io.osmap_io
 import os1_tpu_torch.optim.pose_graph
 import os1_tpu_torch.optim.sim3_opt
+import os1_tpu_torch.parallel
+import os1_tpu_torch.parallel.backend
+import os1_tpu_torch.parallel.dist_ba
+import os1_tpu_torch.parallel.dist_database
+import os1_tpu_torch.parallel.dist_pose_graph
+import os1_tpu_torch.parallel.mesh
 import os1_tpu_torch.pipeline.local_mapping
 import os1_tpu_torch.pipeline.loop_closing
 import os1_tpu_torch.pipeline.relocalization
@@ -133,13 +141,41 @@ def _tiny_config():
     dict(enable_mapping=True, enable_loop_closing=True, coop_mapping=True, distributed=True),
     dict(enable_mapping=True, enable_loop_closing=False, coop_mapping=True, distributed=True),
     dict(enable_mapping=False, enable_loop_closing=False, distributed=True),
+    dict(enable_mapping=True, enable_loop_closing=True, pipelined=True, async_mapping=True,
+         distributed=True),
+    dict(enable_mapping=True, enable_loop_closing=True, distributed=True),
 ])
 def test_system_refuses_options_outside_the_slice(kw):
+    """distributed=True needs a mesh: with one device and no mesh it raises
+    the reference's RuntimeError; with a CPU mesh each mode builds and routes
+    local BA, global BA and the essential graph through its backend;
+    distributed=False refuses a mesh and None on the CPU stays single-device."""
+    import numpy as np
+    import torch
+
+    from os1_tpu_torch.parallel import Mesh, MeshBABackend
     from os1_tpu_torch.pipeline import System
 
     cfg = _tiny_config()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(RuntimeError, match="requires more than one device"):
         System(cfg, device="cpu", **kw)
+    mesh = Mesh(np.full(8, torch.device("cpu"), dtype=object), ("points",))
+    s = System(cfg, device="cpu", mesh=mesh, **kw)
+    try:
+        assert isinstance(s.mesh_backend, MeshBABackend) and s.mesh_backend.mesh is mesh
+        assert s.mapper.mesh_backend is s.mesh_backend is s.loop_closer.mesh_backend
+        assert s.mapper._ba_fns()[1] == s.mesh_backend.begin
+    finally:
+        s.shutdown()
+    off = dict(kw, distributed=False)
+    with pytest.raises(ValueError, match="distributed=False"):
+        System(cfg, device="cpu", mesh=mesh, **off)
+    for d in (None, False):
+        s = System(cfg, device="cpu", **dict(kw, distributed=d))
+        try:
+            assert s.mesh_backend is None and s.mapper.mesh_backend is None
+        finally:
+            s.shutdown()
 
 
 @pytest.mark.parametrize("kw", [
