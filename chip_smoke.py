@@ -100,7 +100,26 @@ fails (non-zero exit, no final result line) if any phase fails:
      thread, the map-lock wait by thread and the worker queue depths, beside
      the shipped mode's frames/s over the same frames ([orbit-loop], [loop]'s
      first pass). The trajectory is not deterministic and not gated;
- 15. cli: ``python3 -m os1_tpu_torch.run_slam --synthetic --frames 120
+ 15. photo, bench.py's third sequence (bench.py:95-113, gated at :148-155):
+     the photo room (io/realimg.photo_room_scene(), walls textured with the
+     packaged photographs) along loop_trajectory(300) in the shipped mode
+     with loop closing on, one pass, gated as bench.py gates it: ATE <= 0.25
+     Sim3-aligned, OK on 70% of the frames from the first OK one, a loop
+     closed; also launches of every kernel on the path and the scheduler
+     idle after flush. It prints frames/s, p50/p99, the loss events and the
+     launches a frame;
+ 16. vocab, vocabulary training on the card (vocab/train.py): (a)
+     training_descriptors() (40 textures at 240x320, 4 levels) on the card
+     against the CPU extractor, the valid descriptors exactly; (b)
+     build_vocabulary(k=10, L=4) on them on the card (each assignment one K1
+     launch) and on the CPU (the plain assignment), identical in every array,
+     and K1's assignment against the plain one at the trainer's shapes
+     ([20480, 10], [1000000, 10], [1000, 7]), exactly, timed; (c) whether its
+     binary equals the committed os1_tpu/data/default_vocab.bin (reported,
+     not gated); (d) training_corpus(120) at 480x640 with 1024 features
+     through the host C++ trainer (k=10, L=5): images/s, training seconds,
+     nodes and words, the kernel launches, a bow.compute at that size;
+ 17. cli: ``python3 -m os1_tpu_torch.run_slam --synthetic --frames 120
      --save-trajectory T --save-map M`` as a subprocess (the threaded
      default): 120 frames, final state OK, 90% tracked, the ATE reported, the
      files written; then ``--load-map M --localization --frames 30``: it
@@ -113,10 +132,13 @@ call; relocalization's five candidates are one 5-lane launch, checked in
 requires. The table kernel (hamming_matrix_cuda) is launched on no path once
 every matcher is fused; it stays checked in [hamming] and listed with 0
 launches. [match] also checks loop closing's two forms (the bound-feature
-match and the guided projection). The kernels line gives the launches of
-the [threaded] loop pass, this slice's main path (run_slam's default mode);
-each wrapper counts its launches by thread too, and all threads launch on
-the device's default stream.
+match and the guided projection). The kernels line gives, as ``launches``, the launches of this slice's
+paths, [photo] and [vocab] (the trainer's assignments are K1's fused match;
+the corpus runs P1 and P2), and by path (``launches_by_path``) those and the
+[threaded] loop pass's (run_slam's default mode); each wrapper counts its
+launches by thread too, and all threads launch on the device's default
+stream. The sequences are rendered in worker processes while the kernel
+phases run (``Renderer``).
 
 The last line is {"ok": true, "device": {...}}; the line before it gives the
 card's name and power limit, and the one before that lists the kernels.
@@ -166,6 +188,18 @@ GATE_MERGE_ATE = 0.05  # of the path length (tests/test_merge.py:56-64)
 GATE_OK_THREADED = 0.85  # the threaded mode's bound (tests/test_async_pipeline.py:157)
 CLI_FRAMES, CLI_LOC_FRAMES = 120, 30  # [cli]: the synthetic run, the localization run
 GATE_CLI_TRACKED = 0.9
+# [photo]: bench.py's photo-room gates (bench.py:148-155).
+N_FRAMES_PHOTO = 300
+GATE_ATE_PHOTO = 0.25
+GATE_OK_PHOTO = 0.70
+GATE_MIN_LOOPS_PHOTO = 1
+# [vocab]: the default vocabulary's training (vocab/dbow2.py), the corpus of
+# the reference-scale trainer cut to VOCAB_CORPUS_IMAGES images, and K1's
+# assignment checked at the trainer's shapes (descriptors, centres).
+VOCAB_DEFAULT = dict(branching=10, depth=4)
+VOCAB_CORPUS_IMAGES, VOCAB_CORPUS_FEATURES = 120, 1024
+VOCAB_NATIVE = dict(branching=10, depth=5)
+ASSIGN_SHAPES = ((20480, 10), (1_000_000, 10), (1000, 7))
 MESH_SHARDS = 8  # the reference's 8-device mesh (tests/conftest.py), as shards on one card
 MESH_TWO_LEVEL = 2  # two_level_backend's hosts in [mesh]
 GATE_MESH_POSE = 5e-4  # mesh vs single-device BA (tests/test_parallel.py:80-83)
@@ -735,9 +769,12 @@ def _log_path(tag, res):
         f"{res['lost_at']}; {res['n_ok']} OK frames; {res['keyframes']} keyframes live, "
         f"{res['keyframes_culled']} culled, {res['points']} points; ATE {res['ate']:.6f}")
     a, b = res["stretch"]
-    log(f"[{tag}] OK stretch frames {a}..{b}: {res['fps_ok']:.3f} frames/s, "
-        f"p50 {res['p50_ms']:.3f} ms, p99 {res['p99_ms']:.3f} ms, "
-        f"host reads/frame {res['host_reads_per_frame']:.3f}")
+    if res["p50_ms"] is None:
+        log(f"[{tag}] no frame tracked by the fused step")
+    else:
+        log(f"[{tag}] OK stretch frames {a}..{b}: {res['fps_ok']:.3f} frames/s, "
+            f"p50 {res['p50_ms']:.3f} ms, p99 {res['p99_ms']:.3f} ms, "
+            f"host reads/frame {res['host_reads_per_frame']:.3f}")
     n = len(res["states"])
     per_frame = {k: round(v / n, 3) for k, v in res["launches"].items()}
     log(f"[{tag}] kernel launches on this path: {res['launches']} ({per_frame} a frame over "
@@ -1868,6 +1905,198 @@ def phase_threaded(tag, frames, poses, coop_ref, device="cuda"):
         sys_.shutdown()
 
 
+def phase_photo(frames, poses, device="cuda"):
+    """bench.py's photo room (photo_room_scene() along loop_trajectory(300),
+    bench.py:95-113) in the shipped mode with loop closing on, one pass,
+    gated as bench.py gates it: Sim3-aligned ATE <= 0.25, OK on 70% of the
+    frames from the first OK one, a loop closed; also the launches of every
+    kernel on the path and the scheduler idle after flush."""
+    tally = dict(sim3_evals=0, sim3_fused_launches=0)
+    _peak_mem(device, reset=True)
+    sys_, lat, ok, reads, launches = drive(
+        frames, mapping=True, device=device, shipped=True, loop=True,
+        on_build=lambda s: _count_sim3_launches(s, tally))
+    res, traj = summarize(sys_, lat, ok, reads, launches, poses, stretch_end=len(frames))
+    lc, first, n = sys_.loop_closer, res["init_frame"], len(frames)
+    res.update(tally, peak_mem_bytes=_peak_mem(device), frames=n, wall_fps=n / sys_.wall_s,
+               sha256=_traj_sha(traj),
+               ok_fraction=float(ok[first:].mean()) if first < n else 0.0,
+               n_loops_closed=lc.n_loops_closed, loop_edges=[list(e) for e in lc.loop_edges],
+               launches_per_frame={k: v / n for k, v in launches.items()},
+               idle_after_flush=(not sys_._pending_frames and not sys_.coop.busy()
+                                 and not sys_.tracker._pending))
+    _log_path("photo", res)
+    log(f"[photo] whole run incl. flush {sys_.wall_s:.3f}s = {res['wall_fps']:.3f} frames/s; OK "
+        f"fraction {res['ok_fraction']:.4f} from frame {first} (gate >= {GATE_OK_PHOTO}); loss "
+        f"events {res['loss_log']}; loops closed {res['n_loops_closed']} (edges "
+        f"{res['loop_edges']}); {res['sim3_evals']} Sim3 candidate evaluations with "
+        f"{res['sim3_fused_launches']} fused-match launches; ATE {res['ate']:.6f} (gate <= "
+        f"{GATE_ATE_PHOTO}); trajectory sha256 {res['sha256'][:16]}")
+    fails = []
+    if not res["ate"] <= GATE_ATE_PHOTO:
+        fails.append(f"ATE {res['ate']} > {GATE_ATE_PHOTO}")
+    if res["ok_fraction"] < GATE_OK_PHOTO:
+        fails.append(f"OK on {res['ok_fraction']:.4f} < {GATE_OK_PHOTO} of the frames")
+    if res["n_loops_closed"] < GATE_MIN_LOOPS_PHOTO:
+        fails.append(f"{res['n_loops_closed']} loops closed < {GATE_MIN_LOOPS_PHOTO}")
+    if not res["finite"]:
+        fails.append("non-finite or misshaped poses")
+    if not res["idle_after_flush"]:
+        fails.append("the scheduler busy after flush")
+    _launch_gate(res, fails)
+    if fails:
+        raise RuntimeError("photo failed: " + "; ".join(fails))
+    return res
+
+
+def _assign_check(rng):
+    """K1's assignment (vocab/train.py::_assign_cuda: one fused-match launch,
+    the nearest of k <= 10 centres) against the plain assignment on the card,
+    exactly, at the trainer's shapes: the default vocabulary's root, a
+    million descriptors (a grid of 62,500 row tiles) and a ragged one."""
+    import torch
+
+    from os1_tpu_torch.ops import hamming
+    from os1_tpu_torch.vocab import train
+
+    rows = []
+    for m, k in ASSIGN_SHAPES:
+        words = torch.as_tensor(_words(rng, (m, 8)).view(np.int32), device="cuda")
+        centres = words[torch.as_tensor(rng.choice(m, k, replace=False), device="cuda")]
+        centres[1:] ^= 1 << 7  # one bit from a descriptor: ties and near ties
+        shifts = torch.arange(32, dtype=torch.int32, device="cuda")
+        bits = ((words[..., None] >> shifts) & 1).reshape(m, 256).to(torch.uint8)
+        cbits = ((centres[..., None] >> shifts) & 1).reshape(k, 256).to(torch.uint8)
+        got = train._assign_cuda(words, centres)
+        want = train._assign(bits, cbits)
+        err = int((got != want).sum())
+        row = dict(shape=[m, k], mismatches=err, max_abs_err=float(err))
+        row.update(_timings(lambda: train._assign_cuda(words, centres),
+                            lambda: train._assign(bits, cbits)))
+        # Bytes: the descriptors and centres read once, idx, dist, ok and
+        # second written; operations: a 256-bit AND and popcount a pair.
+        row.update(_bound(m * 32 + k * 32 + m * 17, 2 * m * k * hamming.BITS))
+        log(f"[vocab] K1 assignment [{m},{k}]: {err} mismatches; {_fmt_k1(row)}")
+        if err:
+            raise RuntimeError(f"vocab: K1's assignment disagrees at [{m},{k}]")
+        rows.append(row)
+    return rows
+
+
+def phase_vocab(device="cuda"):
+    """Vocabulary training on the card: (a) training_descriptors() on the
+    card against the CPU extractor (the valid lanes, exactly); (b)
+    build_vocabulary(k=10, L=4) on them on the card (K1 assigns) and on the
+    CPU (the plain assignment): identical in every array; K1's assignment at
+    the trainer's shapes against the plain one; (c) whether the result's
+    binary equals the committed os1_tpu/data/default_vocab.bin (reported);
+    (d) a training_corpus of 120 images at 480x640 through the host C++
+    trainer (k=10, L=5): images/s, training seconds, nodes and words, the
+    kernel launches, and bow.compute at that size."""
+    from os1_tpu_torch.vocab import dbow2, train
+    from os1_tpu_torch.vocab.database import KeyFrameDatabase
+
+    counters = _counters()
+    out = {}
+    _reset_counts(counters)
+    t0 = time.perf_counter()
+    descs, docs = train.training_descriptors(device=device)
+    t_card = time.perf_counter() - t0
+    launches_a = {k: c.launches for k, c in counters.items()}
+    t0 = time.perf_counter()
+    descs_cpu, docs_cpu = train.training_descriptors(device="cpu")
+    t_cpu = time.perf_counter() - t0
+    same = descs.shape == descs_cpu.shape and bool(
+        np.array_equal(descs, descs_cpu) and np.array_equal(docs, docs_cpu))
+    out["descriptors"] = dict(n=len(descs), n_cpu=len(descs_cpu), identical=same,
+                              card_s=t_card, cpu_s=t_cpu, launches=launches_a)
+    log(f"[vocab] training_descriptors(): {len(descs)} valid descriptors from 40 textures "
+        f"(240x320, 4 levels) on the card in {t_card:.3f}s, {len(descs_cpu)} on the CPU in "
+        f"{t_cpu:.3f}s; identical {same}; launches {launches_a}")
+    if not same:
+        raise RuntimeError("vocab: the card's training descriptors differ from the CPU's")
+
+    kw = dict(VOCAB_DEFAULT, n_docs=int(docs.max()) + 1, doc_ids=docs)
+    _reset_counts(counters)
+    t0 = time.perf_counter()
+    v_card = train.build_vocabulary(descs, device=device, **kw)
+    _sync(device)
+    t_card = time.perf_counter() - t0
+    launches_b = {k: c.launches for k, c in counters.items()}
+    t0 = time.perf_counter()
+    v_cpu = train.build_vocabulary(descs, device="cpu", **kw)
+    t_cpu = time.perf_counter() - t0
+    fields = ("node_desc", "node_children", "node_weight", "node_word")
+    equal = {f: bool(np.array_equal(getattr(v_card, f), getattr(v_cpu, f))) for f in fields}
+    equal.update(n_words=v_card.n_words == v_cpu.n_words)
+    out["build"] = dict(nodes=len(v_card.node_desc), words=v_card.n_words, card_s=t_card,
+                        cpu_s=t_cpu, equal=equal, launches=launches_b)
+    log(f"[vocab] build_vocabulary(k=10, L=4): {len(v_card.node_desc)} nodes, {v_card.n_words} "
+        f"words; on the card (K1 assigns) {t_card:.3f}s with launches {launches_b}, on the CPU "
+        f"(plain) {t_cpu:.3f}s; identical arrays {equal}")
+    if not all(equal.values()):
+        raise RuntimeError(f"vocab: the card's vocabulary differs from the CPU's: {equal}")
+    if device == "cuda":
+        if launches_b["gated_match_cuda"] <= 0:
+            raise RuntimeError("vocab: K1 never launched while training on the card")
+        out["assign"] = _assign_check(np.random.default_rng(5))
+
+    tmp = tempfile.mkdtemp(prefix="os1_vocab_")
+    try:
+        path = os.path.join(tmp, "default_vocab.bin")
+        dbow2.save_binary(v_card, path)
+        mine = open(path, "rb").read()
+        ref = open(os.path.join(dbow2.DATA_DIR, "default_vocab.bin"), "rb").read()
+        recs = lambda b: [b[i:i + 45] for i in range(4, len(b), 45)]  # noqa: E731
+        a, b = recs(mine), recs(ref)
+        share = sum(x == y for x, y in zip(a, b)) / max(len(a), len(b))
+        out["committed"] = dict(identical=mine == ref, bytes=len(mine), bytes_committed=len(ref),
+                                equal_record_share=share, header_equal=mine[:4] == ref[:4])
+        log(f"[vocab] its binary against the committed os1_tpu/data/default_vocab.bin (trained "
+            f"on another device; reported, not gated): identical {mine == ref}; {len(mine)} "
+            f"against {len(ref)} bytes; {share:.4f} of the 45-byte records equal")
+
+        _reset_counts(counters)
+        t0 = time.perf_counter()
+        cdescs, cdocs = train.training_corpus(VOCAB_CORPUS_IMAGES, VOCAB_CORPUS_FEATURES,
+                                              device=device)
+        t_corpus = time.perf_counter() - t0
+        launches_d = {k: c.launches for k, c in counters.items()}
+        t0 = time.perf_counter()
+        big = train.build_vocabulary_native(cdescs, n_docs=int(cdocs.max()) + 1, doc_ids=cdocs,
+                                            **VOCAB_NATIVE)
+        t_train = time.perf_counter() - t0
+        bpath = os.path.join(tmp, "corpus_vocab.bin")
+        dbow2.save_binary(big, bpath)
+        db = KeyFrameDatabase(dbow2.load_binary(bpath), MAP_KEYFRAMES)
+        sample = cdescs[np.random.default_rng(0).choice(len(cdescs), N_FEATURES, replace=False)]
+        valid = np.ones(len(sample), bool)
+        db.compute_bow(sample, valid)
+        ts = []
+        for _ in range(21):
+            t0 = time.perf_counter()
+            db.compute_bow(sample, valid)
+            ts.append(time.perf_counter() - t0)
+        out["corpus"] = dict(images=VOCAB_CORPUS_IMAGES, descriptors=len(cdescs),
+                             corpus_s=t_corpus, images_per_s=VOCAB_CORPUS_IMAGES / t_corpus,
+                             train_s=t_train, nodes=len(big.node_desc), words=big.n_words,
+                             launches=launches_d, compute_bow_ms=float(np.median(ts) * 1e3),
+                             bytes=os.path.getsize(bpath))
+        log(f"[vocab] training_corpus({VOCAB_CORPUS_IMAGES}) at 480x640, "
+            f"{VOCAB_CORPUS_FEATURES} features: {len(cdescs)} descriptors in {t_corpus:.3f}s "
+            f"({out['corpus']['images_per_s']:.3f} images/s, rendering included) with launches "
+            f"{launches_d}; build_vocabulary_native(k=10, L=5) {t_train:.3f}s: "
+            f"{len(big.node_desc)} nodes, {big.n_words} words; bow.compute of {N_FEATURES} "
+            f"descriptors {out['corpus']['compute_bow_ms']:.3f} ms (median of 21)")
+        for k in ("extract_patches_cuda", "sample_patches_cuda"):
+            if device == "cuda" and (launches_d[k] < VOCAB_CORPUS_IMAGES or launches_a[k] <= 0):
+                raise RuntimeError(f"vocab: {k} not launched on every corpus image")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["launches"] = {k: launches_a[k] + launches_b[k] + launches_d[k] for k in counters}
+    return out
+
+
 def _run_cli(args, timeout=600):
     """One ``python3 -m os1_tpu_torch.run_slam`` process from this checkout:
     (exit code, seconds, stdout, stderr)."""
@@ -1939,26 +2168,90 @@ def phase_cli():
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-def render_loop(n_frames):
+SCENES = ("orbit", "loop", "photo")
+RENDER_WORKERS = 6  # processes rendering the sequences beside the card's phases
+
+
+def _scene_and_poses(kind, n_frames):
+    """bench.py's three sequences: the orbit (default_scene(seed=1)), the loop
+    circuit in the room (room_scene(seed=3)) and in the photo room."""
+    from os1_tpu_torch.io import realimg, synthetic
+
+    if kind == "orbit":
+        return synthetic.default_scene(seed=1), synthetic.orbit_trajectory(n_frames, advance=0.05)
+    scene = synthetic.room_scene(seed=3) if kind == "loop" else realimg.photo_room_scene()
+    return scene, synthetic.loop_trajectory(n_frames)
+
+
+def _render_chunk(kind, n_frames, lo, hi, K, h, w):
+    from os1_tpu_torch.io import synthetic
+
+    scene, poses = _scene_and_poses(kind, n_frames)
+    return synthetic.render_sequence(scene, poses[lo:hi], K, h, w)
+
+
+class Renderer:
+    """Renders sequences in worker processes (spawned, so no CUDA state is
+    inherited), chunked over ``RENDER_WORKERS``; :meth:`submit` starts a
+    sequence and :meth:`get` waits for it. A context manager: leaving it
+    stops every worker."""
+
+    def __init__(self, workers=RENDER_WORKERS):
+        import multiprocessing
+        from concurrent.futures import ProcessPoolExecutor
+
+        self.pool = ProcessPoolExecutor(workers, mp_context=multiprocessing.get_context("spawn"))
+        self.workers = workers
+        self.jobs = {}
+
+    def submit(self, kind, n_frames):
+        step = -(-n_frames // (2 * self.workers))
+        futs = [self.pool.submit(_render_chunk, kind, n_frames, lo, min(lo + step, n_frames),
+                                 BENCH_K, H, W) for lo in range(0, n_frames, step)]
+        self.jobs[(kind, n_frames)] = (time.perf_counter(), futs)
+
+    def get(self, kind, n_frames):
+        if (kind, n_frames) not in self.jobs:
+            self.submit(kind, n_frames)
+        t0, futs = self.jobs.pop((kind, n_frames))
+        t1 = time.perf_counter()
+        frames = np.concatenate([f.result() for f in futs])
+        _, poses = _scene_and_poses(kind, n_frames)
+        log(f"[render] {kind}: {n_frames} frames {H}x{W}, {time.perf_counter() - t0:.3f}s since "
+            f"submitted on {self.workers} processes, waited {time.perf_counter() - t1:.3f}s")
+        return frames, poses
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        for _, futs in self.jobs.values():
+            for f in futs:
+                f.cancel()
+        self.pool.shutdown(wait=True, cancel_futures=True)
+        return False
+
+
+def _render_here(kind, n_frames):
     from os1_tpu_torch.io import synthetic
 
     t0 = time.perf_counter()
-    scene = synthetic.room_scene(seed=3)
-    poses = synthetic.loop_trajectory(n_frames)
+    scene, poses = _scene_and_poses(kind, n_frames)
     frames = synthetic.render_sequence(scene, poses, BENCH_K, H, W)
-    log(f"[render] loop sequence: {n_frames} frames {H}x{W} in {time.perf_counter() - t0:.3f}s")
+    log(f"[render] {kind}: {n_frames} frames {H}x{W} in {time.perf_counter() - t0:.3f}s")
     return frames, poses
+
+
+def render_loop(n_frames):
+    return _render_here("loop", n_frames)
 
 
 def render(n_frames):
-    from os1_tpu_torch.io import synthetic
+    return _render_here("orbit", n_frames)
 
-    t0 = time.perf_counter()
-    scene = synthetic.default_scene(seed=1)
-    poses = synthetic.orbit_trajectory(n_frames, advance=0.05)
-    frames = synthetic.render_sequence(scene, poses, BENCH_K, H, W)
-    log(f"[render] {n_frames} frames {H}x{W} in {time.perf_counter() - t0:.3f}s")
-    return frames, poses
+
+def render_photo(n_frames):
+    return _render_here("photo", n_frames)
 
 
 def main() -> int:
@@ -1971,16 +2264,22 @@ def main() -> int:
     t_start = time.perf_counter()
     name, smi = phase_device()
     out = dict(device=name, nvidia_smi=smi)
-    out["build_s"] = phase_build()
-    out["hamming"] = phase_kernel()
-    out["match"] = phase_match()
-    out["patches"] = phase_patches()
+    with Renderer() as renders:  # bench.py's sequences, rendered beside the first phases
+        for kind, n in (("orbit", N_FRAMES), ("orbit", N_FRAMES_MAP), ("loop", N_FRAMES_LOOP),
+                        ("photo", N_FRAMES_PHOTO)):
+            renders.submit(kind, n)
+        out["build_s"] = phase_build()
+        out["hamming"] = phase_kernel()
+        out["match"] = phase_match()
+        out["patches"] = phase_patches()
 
-    frames, poses = render(N_FRAMES)
-    out["slice"] = phase_slice(frames, poses)
-    out["extractor_agreement"] = phase_extractor_agreement(frames)
+        frames, poses = renders.get("orbit", N_FRAMES)
+        out["slice"] = phase_slice(frames, poses)
+        out["extractor_agreement"] = phase_extractor_agreement(frames)
 
-    frames, poses = render(N_FRAMES_MAP)
+        frames, poses = renders.get("orbit", N_FRAMES_MAP)
+        loop_frames, loop_poses = renders.get("loop", N_FRAMES_LOOP)
+        photo_frames, photo_poses = renders.get("photo", N_FRAMES_PHOTO)
     out["mapping"], _ = phase_mapping(frames, poses)
     out["bow"] = phase_bow(frames)
     out["coop"], sys2 = phase_coop(frames, poses)
@@ -1989,12 +2288,15 @@ def main() -> int:
     out["orbit_loop"], sys_o = phase_orbit_loop(frames, poses)
     out["threaded_orbit"] = phase_threaded("orbit", frames, poses, out["orbit_loop"])
 
-    frames, poses = render_loop(N_FRAMES_LOOP)
+    frames, poses = loop_frames, loop_poses
     out["loop"], sys_a = phase_loop(frames, poses)
     out["threaded_loop"] = phase_threaded("loop", frames, poses, out["loop"]["first"])
     out["osmap"] = phase_osmap(sys_a, sys_o, frames, poses)
     out["mesh"] = phase_mesh(frames, poses, sys_a, out["loop"])
-    del sys_a, sys_o
+    del sys_a, sys_o, frames, loop_frames
+    out["photo"] = phase_photo(photo_frames, photo_poses)
+    del photo_frames
+    out["vocab"] = phase_vocab()
     out["cli"] = phase_cli()
     out["seconds"] = time.perf_counter() - t_start
 
@@ -2003,7 +2305,10 @@ def main() -> int:
         with open(args.json, "w") as f:
             json.dump(out, f, indent=1)
 
-    launches = out["threaded_loop"]["launches"]
+    # This slice's paths are the photo room and vocabulary training; the
+    # threaded loop pass (run_slam's default mode) is listed beside them.
+    by_path = dict(photo=out["photo"]["launches"], vocab=out["vocab"]["launches"],
+                   threaded_loop=out["threaded_loop"]["launches"])
     big = next(r for r in out["hamming"] if r["shape"] == [4096, 1024])
     fused = next(r for r in out["match"] if r["batch"] == 1 and r["shape"] == [4096, 1024])
     p1 = next(r for r in out["patches"]["p1"] if r["n"] == 1024)
@@ -2011,13 +2316,15 @@ def main() -> int:
 
     def entry(name, source, replaces, row, rows):
         return dict(name=name, route="cuda", source=source, replaces=replaces,
-                    launches=launches[name], max_abs_err=max(r["max_abs_err"] for r in rows),
+                    launches=by_path["photo"][name] + by_path["vocab"][name],
+                    launches_by_path={k: v[name] for k, v in by_path.items()},
+                    max_abs_err=max(r["max_abs_err"] for r in rows),
                     ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
                     bound_by=row["bound_by"], library_ms=row["library_ms"])
 
     kernels = [
         entry("gated_match_cuda", "os1_tpu_torch/csrc/hamming.cu",
-              "os1_tpu/ops/pallas_hamming.py:37", fused, out["match"]),
+              "os1_tpu/ops/pallas_hamming.py:37", fused, out["match"] + out["vocab"]["assign"]),
         entry("hamming_matrix_cuda", "os1_tpu_torch/csrc/hamming.cu",
               "os1_tpu/ops/pallas_hamming.py:37", big, out["hamming"]),
         entry("extract_patches_cuda", "os1_tpu_torch/csrc/patches.cu", "profile_patch.py:94",

@@ -1,5 +1,5 @@
-// Host BoW runtime: the DBoW2 binary vocabulary loader and the
-// vocabulary-tree descent, for os1_tpu_torch/vocab.
+// Host BoW runtime: the DBoW2 binary vocabulary loader, the vocabulary-tree
+// descent and the hierarchical k-medians trainer, for os1_tpu_torch/vocab.
 //
 // Keyframe-rate host work, as in the reference (KeyFrame::ComputeBoW runs on
 // the CPU): ~1k descriptors walk a k-ary tree of up to ~10^6 nodes, about
@@ -9,6 +9,7 @@
 #include <cstdint>
 #include <cstdio>
 #include <cstring>
+#include <thread>
 #include <vector>
 
 #include <fcntl.h>
@@ -132,6 +133,214 @@ int bow_transform(const uint32_t* desc, const uint8_t* valid, int64_t n,
     out_word[i] = node_word[cur];
     out_weight[i] = node_weight[cur];
   }
+  return 0;
+}
+
+}  // extern "C"
+
+// ---------------------------------------------------------------------------
+// Hierarchical binary k-medians vocabulary training (DBoW2's construction:
+// k-means with bitwise-majority centres, the mean under the Hamming metric).
+// Deterministic under `seed`: the draws, their order and the two-thread
+// split of the assignment are the JAX package's native trainer's
+// (os1_tpu/native/os1native.cpp), so both build the same tree.
+// ---------------------------------------------------------------------------
+
+namespace {
+
+struct SplitMix64 {
+  uint64_t s;
+  explicit SplitMix64(uint64_t seed) : s(seed) {}
+  uint64_t next() {
+    uint64_t z = (s += 0x9e3779b97f4a7c15ULL);
+    z = (z ^ (z >> 30)) * 0xbf58476d1ce4e5b9ULL;
+    z = (z ^ (z >> 27)) * 0x94d049bb133111ebULL;
+    return z ^ (z >> 31);
+  }
+  uint64_t below(uint64_t n) { return next() % n; }  // uniform in [0, n)
+};
+
+// Nearest of k packed centres (the lowest index on ties).
+inline int32_t nearest(const uint32_t* d, const uint32_t* centers, int32_t k) {
+  int32_t best = 0;
+  int bestd = 1 << 30;
+  for (int32_t c = 0; c < k; ++c) {
+    const int dist = hamming256(d, centers + c * 8);
+    if (dist < bestd) {
+      bestd = dist;
+      best = c;
+    }
+  }
+  return best;
+}
+
+// One k-medians run over descs[idx[0..m)]. Writes up to k packed centres and
+// the final assignment; returns the surviving centre count (empty clusters
+// are dropped). Above 65536 descriptors the assignment runs on two threads,
+// each summing its own half.
+int32_t kmedians(const uint32_t* descs, const int64_t* idx, int64_t m, int32_t k, int iters,
+                 SplitMix64* rng, uint32_t* centers, int32_t* assign) {
+  if (m <= 0) return 0;
+  if (k > m) k = static_cast<int32_t>(m);
+  // k distinct members drawn at random; a duplicate is redrawn, and on a
+  // duplicate-heavy cluster one redraw in eight gives up with fewer centres.
+  int32_t got = 0;
+  while (got < k) {
+    const int64_t pick = idx[rng->below(static_cast<uint64_t>(m))];
+    bool dup = false;
+    for (int32_t c = 0; c < got && !dup; ++c)
+      dup = hamming256(centers + c * 8, descs + pick * 8) == 0;
+    if (!dup) {
+      memcpy(centers + got * 8, descs + pick * 8, 32);
+      ++got;
+    } else if (rng->below(8) == 0) {
+      break;
+    }
+  }
+  k = got;
+  if (k <= 1) {
+    for (int64_t i = 0; i < m; ++i) assign[i] = 0;
+    return k;
+  }
+
+  std::vector<int64_t> counts(k);
+  std::vector<int64_t> bitcnt(static_cast<size_t>(k) * 256);
+  for (int it = 0; it < iters; ++it) {
+    std::fill(counts.begin(), counts.end(), 0);
+    std::fill(bitcnt.begin(), bitcnt.end(), 0);
+    auto worker = [&](int64_t lo, int64_t hi, int64_t* cnts, int64_t* bits) {
+      for (int64_t i = lo; i < hi; ++i) {
+        const uint32_t* d = descs + idx[i] * 8;
+        const int32_t best = nearest(d, centers, k);
+        assign[i] = best;
+        cnts[best]++;
+        int64_t* bc = bits + static_cast<int64_t>(best) * 256;
+        for (int w = 0; w < 8; ++w) {
+          for (uint32_t v = d[w]; v; v &= v - 1) bc[w * 32 + __builtin_ctz(v)]++;
+        }
+      }
+    };
+    if (m > 65536) {
+      std::vector<int64_t> counts2(k, 0);
+      std::vector<int64_t> bitcnt2(static_cast<size_t>(k) * 256, 0);
+      const int64_t mid = m / 2;
+      std::thread t(worker, 0, mid, counts.data(), bitcnt.data());
+      worker(mid, m, counts2.data(), bitcnt2.data());
+      t.join();
+      for (int32_t c = 0; c < k; ++c) counts[c] += counts2[c];
+      for (size_t i = 0; i < bitcnt.size(); ++i) bitcnt[i] += bitcnt2[i];
+    } else {
+      worker(0, m, counts.data(), bitcnt.data());
+    }
+    // Majority-vote centres (bit set iff 2 * ones >= members); empty
+    // clusters are dropped.
+    int32_t k_new = 0;
+    bool changed = false;
+    for (int32_t c = 0; c < k; ++c) {
+      if (counts[c] == 0) {
+        changed = true;
+        continue;
+      }
+      uint32_t nc[8] = {0};
+      const int64_t* bc = bitcnt.data() + static_cast<int64_t>(c) * 256;
+      for (int b = 0; b < 256; ++b)
+        if (2 * bc[b] >= counts[c]) nc[b / 32] |= 1u << (b % 32);
+      if (memcmp(nc, centers + c * 8, 32) != 0) changed = true;
+      memcpy(centers + k_new * 8, nc, 32);
+      ++k_new;
+    }
+    k = k_new;
+    if (!changed || k <= 1) break;
+  }
+  for (int64_t i = 0; i < m; ++i) assign[i] = nearest(descs + idx[i] * 8, centers, k);
+  return k;
+}
+
+struct TrainState {
+  const uint32_t* descs;
+  int32_t kb, depth;
+  int iters;
+  uint32_t* node_desc;
+  int32_t* children;
+  int32_t* node_word;
+  int32_t* leaf_count;
+  int64_t max_nodes;
+  int64_t n_nodes;
+  int64_t n_words;
+  SplitMix64 rng;
+  std::vector<uint32_t> cbuf;
+  std::vector<int32_t> abuf;
+};
+
+// Splits a node's descriptors idx[0..m) into children, recursively, depth
+// first. idx is reordered in place so that each child owns a contiguous
+// range; the children's ids are taken before any of them is split, so a
+// parent always precedes its children, as the binary format requires.
+// Returns false when the node capacity overflows.
+bool split_node(TrainState* ts, int32_t node, int64_t* idx, int64_t m, int32_t level) {
+  if (level == ts->depth || m <= ts->kb) {
+    ts->node_word[node] = static_cast<int32_t>(ts->n_words++);
+    ts->leaf_count[node] = static_cast<int32_t>(m);
+    return true;
+  }
+  uint32_t* centers = ts->cbuf.data();
+  int32_t* assign = ts->abuf.data();
+  const int32_t k = kmedians(ts->descs, idx, m, ts->kb, ts->iters, &ts->rng, centers, assign);
+  if (k <= 1) {  // a degenerate cluster (identical descriptors)
+    ts->node_word[node] = static_cast<int32_t>(ts->n_words++);
+    ts->leaf_count[node] = static_cast<int32_t>(m);
+    return true;
+  }
+  // Stable counting sort of idx by assignment.
+  std::vector<int64_t> start(k + 1, 0);
+  for (int64_t i = 0; i < m; ++i) start[assign[i] + 1]++;
+  for (int32_t c = 0; c < k; ++c) start[c + 1] += start[c];
+  std::vector<int64_t> tmp(m);
+  {
+    std::vector<int64_t> pos(start.begin(), start.end() - 1);
+    for (int64_t i = 0; i < m; ++i) tmp[pos[assign[i]]++] = idx[i];
+  }
+  memcpy(idx, tmp.data(), sizeof(int64_t) * m);
+  std::vector<int32_t> child_ids(k);
+  for (int32_t c = 0; c < k; ++c) {
+    if (ts->n_nodes >= ts->max_nodes) return false;
+    const int32_t id = static_cast<int32_t>(ts->n_nodes++);
+    child_ids[c] = id;
+    memcpy(ts->node_desc + static_cast<int64_t>(id) * 8, centers + c * 8, 32);
+    ts->children[static_cast<int64_t>(node) * ts->kb + c] = id;
+  }
+  for (int32_t c = 0; c < k; ++c) {
+    if (!split_node(ts, child_ids[c], idx + start[c], start[c + 1] - start[c], level + 1))
+      return false;
+  }
+  return true;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Trains a vocabulary tree over m packed descriptors [m * 8]. Fills
+// node_desc [max_nodes * 8], children [max_nodes * kb] (-1 padded),
+// node_word [max_nodes] (-1 for internal nodes) and leaf_count [max_nodes]
+// (training descriptors a leaf, for the idf), and the node count into
+// *n_nodes. Returns -1 on empty input, -2 when max_nodes overflows.
+int vocab_train(const uint32_t* descs, int64_t m, int32_t kb, int32_t depth, uint32_t seed,
+                int32_t iters, uint32_t* node_desc, int32_t* children, int32_t* node_word,
+                int32_t* leaf_count, int64_t max_nodes, int64_t* n_nodes) {
+  if (m <= 0 || max_nodes < 1) return -1;
+  memset(children, 0xFF, sizeof(int32_t) * max_nodes * kb);
+  memset(node_word, 0xFF, sizeof(int32_t) * max_nodes);
+  memset(leaf_count, 0, sizeof(int32_t) * max_nodes);
+  memset(node_desc, 0, sizeof(uint32_t) * 8);
+  TrainState ts{descs, kb, depth, iters, node_desc, children, node_word, leaf_count,
+                max_nodes, 1, 0, SplitMix64(seed), {}, {}};
+  ts.cbuf.resize(static_cast<size_t>(kb) * 8);
+  ts.abuf.resize(m);
+  std::vector<int64_t> idx(m);
+  for (int64_t i = 0; i < m; ++i) idx[i] = i;
+  if (!split_node(&ts, 0, idx.data(), m, 0)) return -2;
+  *n_nodes = ts.n_nodes;
   return 0;
 }
 

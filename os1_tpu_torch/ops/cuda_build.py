@@ -26,7 +26,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
-GXX_FLAGS = ("-std=c++17", "-O3", "-shared", "-fPIC")
+GXX_FLAGS = ("-std=c++17", "-O3", "-shared", "-fPIC", "-pthread")
 
 
 _COUNT_LOCK = threading.Lock()

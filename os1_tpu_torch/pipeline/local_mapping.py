@@ -213,6 +213,9 @@ class LocalMapper:
     # (LocalMapping.cc:72). The deferral is bounded: after cfg.th.ba_debt_max
     # deferred keyframes they run regardless.
     pending_fn = None  # callable() -> int
+    # The keyframes waiting for their pass, wired by System to the threaded
+    # worker's queue: keyframe culling spares them (see cull_keyframes).
+    queued_fn = None  # callable() -> list of keyframe ids
     _ba_debt: int = 0
     # Finite triangulations with a parallax cosine above this are classed
     # umbralCosBajo (the reference's viewer trackbar, Viewer.cc:133 ->
@@ -520,8 +523,21 @@ class LocalMapper:
     def cull_keyframes(self, kf: int) -> None:
         """KeyFrameCulling (LocalMapping.cc:556-603): a covisible keyframe
         whose map points are >= 90% redundant (seen by >= 3 other keyframes)
-        is removed. The two oldest keyframes (the gauge), the new keyframe
-        and the tracker's reference keyframe are kept."""
+        is removed. The two oldest keyframes (the gauge), the new keyframe,
+        the tracker's reference keyframe and the keyframes still waiting for
+        their pass (``queued_fn``) are kept.
+
+        A waiting keyframe holds only the tracked points it was made with,
+        all of them old and well observed, so it looks redundant before its
+        own pass has triangulated anything; culled then, its pass is
+        skipped and the map does not grow where the camera goes. In the
+        reference a keyframe joins the covisibility graph only in its own
+        ProcessNewKeyFrame (LocalMapping.cc:125-153), so culling never sees
+        a waiting one. The JAX package adds the observations when the
+        keyframe is made and culls it; its threaded worker seldom has one
+        waiting, while the port's, paced one stage a tracked frame, has one
+        waiting after most frames. The cooperative scheduler keeps the JAX
+        package's rule (``queued_fn`` unset), which its parity tests hold."""
         st = self.store
         live = np.nonzero(st.kf_valid)[0]
         oldest2 = live[np.argsort(st.kf_seq[live], kind="stable")[:2]]
@@ -530,6 +546,8 @@ class LocalMapper:
             p = self.protected_kf_fn()
             if p is not None and p >= 0:
                 protected.add(int(p))
+        if self.queued_fn is not None:
+            protected.update(int(k) for k in self.queued_fn())
         for c in st.covisible_keyframes(kf):
             c = int(c)
             if c in protected:

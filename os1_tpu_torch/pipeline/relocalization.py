@@ -7,7 +7,9 @@ All candidates are evaluated in one batched program, gathered from the device
 mirror by index: one 5-lane launch of the fused gated match (the frame's
 descriptors shared by every lane, the masks-only gate), mutual-best and
 rotation consistency over the lanes, then PnP and the pose polish batched
-over the lanes, and one read of the [5, 20] head and the [5, N] bindings. The
+over the lanes, and one read of the [5, 20] head and the [5, N] bindings.
+Lanes left over by fewer than five candidates repeat the first one, and the
+port takes its best lane (the JAX package reads only the first). The
 reference package builds one [N, 5N] distance table and slices it; the fused
 kernel never writes it, and its top-2 is bit-exact with the plain chain, so
 the matches are the same. The per-candidate acceptance walk and the guided
@@ -115,8 +117,13 @@ class Relocalizer:
             mir.pt_xyz, mir.pt_valid, self._intr, self.sampler)
         head, bind = self.reads.numpy_all((head, bind))
         # The reference's per-candidate acceptance walk over the head: the
-        # first candidate clearing every gate wins.
+        # first candidate clearing every gate wins. With fewer candidates
+        # than lanes, the spare lanes repeat the first candidate with other
+        # PnP draws; its best lane stands for it (the reference iterates a
+        # candidate's RANSAC until it succeeds, up to 300 iterations).
         for i, kf in enumerate(keep):
+            if i == 0:
+                i = max(np.nonzero(cand_idx == kf)[0], key=lambda j: (head[j, 1], head[j, 2]))
             n_match, pnp_ok, n_good = head[i, 0], head[i, 1], head[i, 2]
             if n_match < 15 or pnp_ok < 0.5 or n_good < 10:
                 continue  # reference gates (Tracking.cc:1014,1050)

@@ -105,7 +105,7 @@ class System:
 
         # Place recognition (System.cc:100 loads the vocabulary).
         if self.vocab is None:
-            self.vocab = default_vocabulary()
+            self.vocab = default_vocabulary(self.device)
         elif isinstance(self.vocab, str):
             self.vocab = load_binary(self.vocab)
         self.db = KeyFrameDatabase(self.vocab, self.cfg.map.max_keyframes)
@@ -148,6 +148,7 @@ class System:
             self.tracker.mapping_idle = lambda: self.mapping_worker.accepting
             self.tracker.interrupt_ba = self.mapping_worker.interrupt_ba
             self.mapper.pending_fn = self.mapping_worker.queue_size
+            self.mapper.queued_fn = self.mapping_worker.queued
         elif self.coop_mapping:
             self.coop = CoopScheduler(self.mapper,
                                       loop_steps=self._loop_steps if self.enable_loop_closing

@@ -132,6 +132,9 @@ class Tracker:
         self._pending = []
         self._anchor = 0  # raised by drop_in_flight: older results are stale
         self.stale_binds = 0  # bindings dropped because their slot held a new point
+        # The last keyframe decision: (frame id, c1, c2, c3, c4, verdict), the
+        # verdict one of "hold", "not_needed", "loop_closing", "refused", "insert".
+        self.kf_check = None
         if self.sampler is None:
             self.sampler = GumbelSampler(seed=0, device=self.device)
         self._intr = torch.as_tensor(self.cfg.intr, device=self.device)
@@ -614,6 +617,7 @@ class Tracker:
         # Fresh relocalization: hold off insertion for one max-frames window
         # once the map is mature (Tracking.cc:709-710).
         if fid < self.last_reloc_frame_id + th.kf_max_frames and st.n_keyframes() > th.kf_max_frames:
+            self.kf_check = (fid, False, False, False, False, "hold")
             return False
         # Reference matches count points with >= 3 observations when the map
         # has > 2 keyframes (Tracking.cc:711-714).
@@ -643,14 +647,19 @@ class Tracker:
             z_cur = self.last.Tcw[2, :3]
             z_ref = st.kf_T[self.ref_kf][2, :3]
             c4 = float(np.dot(z_cur, z_ref)) < float(np.cos(np.deg2rad(th.kf_view_angle_deg)))
+        flags = (fid, bool(c1), bool(c2), bool(c3), bool(c4))
         if not (c1 or c2 or c3 or c4):
+            self.kf_check = (*flags, "not_needed")
             return False
         if self.loop_closing_active is not None and self.loop_closing_active():
+            self.kf_check = (*flags, "loop_closing")
             return False
         # Backpressure (Tracking.cc:719,749-760): a keyframe goes in only while
         # local mapping accepts one; otherwise interrupt its BA and retry.
         if self.mapping_idle is None or self.mapping_idle():
+            self.kf_check = (*flags, "insert")
             return True
+        self.kf_check = (*flags, "refused")
         if self.interrupt_ba is not None:
             self.interrupt_ba()
         return False

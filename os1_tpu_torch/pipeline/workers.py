@@ -198,6 +198,12 @@ class MappingWorker:
         with self._cv:
             return len(self._queue)
 
+    def queued(self) -> list[int]:
+        """The keyframes waiting for their pass (the mapper never culls
+        them: see ``LocalMapper.cull_keyframes``)."""
+        with self._cv:
+            return [kf for kf, _ in self._queue]
+
     # ---------------- control protocol ---------------------------------- #
     def request_stop(self) -> None:
         """Pause after the pass in flight (the queue is kept): loop

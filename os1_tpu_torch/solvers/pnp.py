@@ -2,11 +2,15 @@
 os1_tpu/solvers/pnp.py (the reference's PnPsolver, used by relocalization,
 Tracking.cc:1015).
 
-Every hypothesis solves the 6-point DLT system, one 12x12 symmetric ``eigh``
-of the same shape for all 256 hypotheses, so the RANSAC iterations run as one
-batched solve; the best hypothesis is refit on all its inliers (a weighted
-DLT) and kept if the refit scores at least as well. The caller polishes the
-pose with the LM pose optimization, as in the reference.
+Every sample of 6 correspondences gives two hypotheses: the 6-point DLT
+system, one 12x12 symmetric ``eigh`` of the same shape for all 256 samples,
+and the pose from the homography of the sample's best-fit plane (a 9x9
+``eigh``), so the RANSAC iterations run as one batched solve. The plane
+hypothesis is the port's: the JAX package solves the DLT alone, which
+coplanar points leave undetermined, so it relocalizes in front of a single
+wall only by rounding noise. The best hypothesis is refit on all its inliers
+(a weighted DLT) and kept if the refit scores at least as well. The caller
+polishes the pose with the LM pose optimization, as in the reference.
 
 The draw is an argument: ``sampler(valid [..., N] bool, iters, k) -> [...,
 iters, k]`` indices of valid correspondences (the relocalizer passes a
@@ -60,6 +64,37 @@ def _pose_from_P(P: torch.Tensor, X_ref: torch.Tensor) -> torch.Tensor:
     return se3.from_Rt(se3.normalize_rotation(P[..., :3]), P[..., 3])
 
 
+def _plane_pose(X: torch.Tensor, uv_n: torch.Tensor) -> torch.Tensor:
+    """[..., s, 3] world points taken as coplanar and [..., s, 2] normalized
+    image coordinates -> the [..., 4, 4] pose from the plane-to-image
+    homography. The plane is the samples' best-fit plane (its two widest
+    principal axes); the homography's first two columns are the rotation's
+    first two, up to scale, and the third the translation of the centroid.
+    The DLT's 12 unknowns are not determined by coplanar points (the plane
+    leaves three directions of the system free), and the walls of a room
+    are planes."""
+    c = X.mean(dim=-2)
+    Xc = X - c[..., None, :]
+    _, axes = torch.linalg.eigh(Xc.transpose(-1, -2) @ Xc)
+    e1, e2 = axes[..., :, 2], axes[..., :, 1]
+    B = torch.stack([e1, e2, torch.linalg.cross(e1, e2)], dim=-1)  # plane -> world
+    ab = Xc @ B[..., :2]  # [..., s, 2] plane coordinates
+    abh = torch.cat([ab, torch.ones_like(ab[..., :1])], dim=-1)
+    zero = torch.zeros_like(abh)
+    rows_u = torch.cat([abh, zero, -uv_n[..., 0:1] * abh], dim=-1)
+    rows_v = torch.cat([zero, abh, -uv_n[..., 1:2] * abh], dim=-1)
+    A = torch.cat([rows_u, rows_v], dim=-2)
+    _, vecs = torch.linalg.eigh(A.transpose(-1, -2) @ A)
+    H = vecs[..., :, 0].reshape(vecs.shape[:-2] + (3, 3))
+    h1, h2, h3 = H[..., :, 0], H[..., :, 1], H[..., :, 2]
+    lam = 2.0 / (torch.linalg.norm(h1, dim=-1) + torch.linalg.norm(h2, dim=-1) + 1e-12)
+    lam = lam * torch.where(h3[..., 2] < 0, -torch.ones_like(lam), torch.ones_like(lam))
+    r1, r2, t = h1 * lam[..., None], h2 * lam[..., None], h3 * lam[..., None]
+    Rp = se3.normalize_rotation(torch.stack([r1, r2, torch.linalg.cross(r1, r2)], dim=-1))
+    R = Rp @ B.transpose(-1, -2)
+    return se3.from_Rt(R, t - (R @ c[..., None])[..., 0])
+
+
 def _reproj_err(T, points, uv, sigma2, intr):
     """(chi2 error, depth) of every correspondence under T."""
     fx, fy, cx, cy = intr[0], intr[1], intr[2], intr[3]
@@ -90,7 +125,10 @@ def solve_pnp(points: torch.Tensor, uv: torch.Tensor, sigma2: torch.Tensor,
     idx = sampler(valid, ITERS, SAMPLE).reshape(B, ITERS, SAMPLE)
     lane = torch.arange(B, device=idx.device)[:, None, None]
     X = pts[lane, idx]  # [B, I, s, 3]
-    T = _pose_from_P(_dlt_pose(X, uv_n[lane, idx]), X.mean(dim=-2))  # [B, I, 4, 4]
+    # Two hypotheses a sample: the DLT, and the plane pose for a sample that
+    # lies on a plane; the DLT's come first, so they win ties.
+    T = torch.cat([_pose_from_P(_dlt_pose(X, uv_n[lane, idx]), X.mean(dim=-2)),
+                   _plane_pose(X, uv_n[lane, idx])], dim=1)  # [B, 2I, 4, 4]
 
     # Score every hypothesis against all correspondences.
     err, z = _reproj_err(T, pts[:, None], uv[:, None], sigma2[:, None], intr)

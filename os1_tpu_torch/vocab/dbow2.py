@@ -58,16 +58,30 @@ def load_binary(path: str) -> Vocabulary:
 
 
 _DEFAULT_CACHE = {}
+# Where a default vocabulary trained by this package is written (gitignored).
+TRAINED_DEFAULT = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                               "_build", "default_vocab.bin")
 
 
-def default_vocabulary() -> Vocabulary:
+def default_vocabulary(device=None) -> Vocabulary:
     """The first of ``DEFAULT_FILES`` present in ``DATA_DIR``, loaded once per
-    process. The port does not train vocabularies: without any of them it
-    raises."""
-    for name in DEFAULT_FILES:
-        path = os.path.join(DATA_DIR, name)
-        if os.path.exists(path):
-            if path not in _DEFAULT_CACHE:
-                _DEFAULT_CACHE[path] = load_binary(path)
-            return _DEFAULT_CACHE[path]
-    raise FileNotFoundError(f"no vocabulary in {DATA_DIR} (looked for {DEFAULT_FILES})")
+    process. Without any of them, the default is trained as the reference
+    trains it (``training_descriptors()``, then ``build_vocabulary(k=10,
+    L=4)``, on ``device``; None: the card) into ``TRAINED_DEFAULT``, and read
+    from there from then on."""
+    paths = [os.path.join(DATA_DIR, name) for name in DEFAULT_FILES] + [TRAINED_DEFAULT]
+    path = next((p for p in paths if os.path.exists(p)), None)
+    if path is None:
+        from .train import build_vocabulary, training_descriptors
+
+        descs, docs = training_descriptors(device=device)
+        vocab = build_vocabulary(descs, branching=10, depth=4, n_docs=int(docs.max()) + 1,
+                                 doc_ids=docs, device=device)
+        os.makedirs(os.path.dirname(TRAINED_DEFAULT), exist_ok=True)
+        tmp = f"{TRAINED_DEFAULT}.tmp{os.getpid()}"
+        save_binary(vocab, tmp)
+        os.replace(tmp, TRAINED_DEFAULT)
+        path = TRAINED_DEFAULT
+    if path not in _DEFAULT_CACHE:
+        _DEFAULT_CACHE[path] = load_binary(path)
+    return _DEFAULT_CACHE[path]

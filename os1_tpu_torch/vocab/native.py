@@ -1,7 +1,7 @@
-"""The host BoW library (``csrc/bow.cpp``): the DBoW2 binary loader and the
-vocabulary-tree descent, built with g++ at first use into ``_build/`` and
-bound with ctypes. There is no fallback: if the library cannot be built or a
-call fails, it raises."""
+"""The host BoW library (``csrc/bow.cpp``): the DBoW2 binary loader, the
+vocabulary-tree descent and the hierarchical k-medians trainer, built with g++
+at first use into ``_build/`` and bound with ctypes. There is no fallback: if
+the library cannot be built or a call fails, it raises."""
 from __future__ import annotations
 
 import ctypes
@@ -17,6 +17,7 @@ LIBRARY = KernelLibrary("bow.cpp", {
     "vocab_count": [ctypes.c_char_p, _P, _P, _P],
     "vocab_load": [ctypes.c_char_p, _P, _P, _P, _P, _I64, _I32, _P],
     "bow_transform": [_P, _P, _I64, _P, _P, _P, _P, _I32, _I32, _P, _P],
+    "vocab_train": [_P, _I64, _I32, _I32, ctypes.c_uint32, _I32, _P, _P, _P, _P, _I64, _P],
 }, compiler=_gxx, flags=GXX_FLAGS)
 
 
@@ -54,3 +55,24 @@ def bow_transform(vocab, desc: np.ndarray, valid: np.ndarray):
     LIBRARY.launch("bow_transform", _ptr(desc), _ptr(valid), n, *map(_ptr, arrays),
                    int(vocab.branching), int(vocab.depth), _ptr(word), _ptr(weight))
     return word, weight
+
+
+def vocab_train(descs: np.ndarray, branching: int, depth: int, seed: int = 0,
+                iters: int = 8):
+    """Hierarchical binary k-medians over packed descriptors [M, 8] uint32 in
+    host C++. Returns (node_desc [n, 8] uint32, node_children [n, k] int32,
+    node_word [n] int32, leaf_count [n] int32, n_nodes, n_words), the same
+    tree as the JAX package's native trainer for the same seed."""
+    descs = np.ascontiguousarray(descs, np.uint32)
+    max_nodes = sum(branching ** lvl for lvl in range(depth + 1)) + 1
+    node_desc = np.zeros((max_nodes, 8), np.uint32)
+    children = np.zeros((max_nodes, branching), np.int32)
+    node_word = np.zeros(max_nodes, np.int32)
+    leaf_count = np.zeros(max_nodes, np.int32)
+    n = _I64()
+    LIBRARY.launch("vocab_train", _ptr(descs), len(descs), branching, depth, seed, iters,
+                   _ptr(node_desc), _ptr(children), _ptr(node_word), _ptr(leaf_count),
+                   max_nodes, ctypes.byref(n))
+    n = int(n.value)
+    return (node_desc[:n], children[:n], node_word[:n], leaf_count[:n], n,
+            int((node_word[:n] >= 0).sum()))

@@ -1,7 +1,8 @@
 """The port stands alone: ``os1_tpu_torch`` imports neither JAX nor the JAX
 package, at import time or while it runs frames in the shipped mode
 (pipelined, cooperative mapping, loop closing, the BoW database and the
-relocalizer), its Osmap persistence needs neither protobuf, PyYAML nor
+relocalizer) or trains a vocabulary and reads the photographs, its Osmap
+persistence needs neither protobuf, PyYAML nor
 OpenCV, its shell (``io/``, ``viz/``, ``run_slam.py``) imports OpenCV only
 inside functions, its distributed back end (``parallel/``) imports neither,
 and its System builds every mode (the worker threads included), runs
@@ -49,6 +50,8 @@ import os1_tpu_torch.vocab.database
 import os1_tpu_torch.vocab.dbow2
 import os1_tpu_torch.vocab.native
 import os1_tpu_torch.vocab.tree
+import os1_tpu_torch.vocab.train
+import os1_tpu_torch.io.realimg
 from os1_tpu_torch.features.orb import OrbConfig
 from os1_tpu_torch.geometry.camera import Camera
 from os1_tpu_torch.io import synthetic
@@ -70,6 +73,13 @@ for img in np.zeros((3, H, W), np.float32):  # black frames: lost, then relocali
 s.flush()
 assert states[0] == TrackingState.NOT_INITIALIZED, states
 assert s.db.vocab.n_words > 0
+# Vocabulary training and the photographs, at a toy size.
+from os1_tpu_torch.io import realimg
+from os1_tpu_torch.vocab import train
+assert len(realimg.photo_room_scene()) == 4
+descs, docs = train.training_descriptors(n_images=2, n_features=64, device="cpu")
+assert train.build_vocabulary(descs, 3, 2, device="cpu").n_words > 0
+assert train.build_vocabulary_native(descs, 3, 2, doc_ids=docs).n_words > 0
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib", "os1_tpu.")) or m == "os1_tpu")
 print("LEAKED", bad)
 """
@@ -205,6 +215,8 @@ def test_system_accepts_the_ported_modes(kw):
         assert s.tracker.lock is s.mapper.lock is s.loop_closer.lock is s.lock
         if s.coop is not None:
             assert s.coop.loop_steps is not None
+        assert s.mapper.queued_fn == (s.mapping_worker.queued if s.mapping_worker
+                                      is not None else None)
         if s.mapping_worker is not None:
             assert s.mapping_worker._thread.is_alive()
             assert (s.loop_worker is not None) == kw["enable_loop_closing"]

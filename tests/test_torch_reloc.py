@@ -14,6 +14,11 @@ correspondences, with the same key chain.
   tests' bounds of the true pose. On the too-few case the pose is not a
   result (success is False) and is not compared. A batch of lanes equals its
   lanes solved one at a time.
+- PnP on a wall: 200 coplanar points (a tilted plane, 80 outliers), where
+  the DLT's 12 unknowns are not determined. The port adds a plane-pose
+  hypothesis a sample (the homography of the sample's plane) and recovers
+  the pose within 1e-2 of the truth; the JAX package's PnP, on the same
+  draws, does not (the deviation that lets the photo room relocalize).
 - The candidates program on a map built by the JAX package (sync mapping over
   24 frames of the JAX pipeline tests' orbit), for a frame of the sequence
   against its five newest keyframes: the 5-lane match (n_match) and PnP
@@ -29,6 +34,9 @@ correspondences, with the same key chain.
 - The relocalizer's acceptance walk and guided projection rounds on that map,
   the JAX program's head and bindings handed to the port: the same verdict,
   the same matched keyframe, the same bindings and a pose within atol 1e-4.
+- One candidate and four spare lanes: the spare lanes repeat it with other
+  PnP draws and its best lane decides (the JAX package reads only the
+  first).
 - The blackout sequence of the JAX pipeline tests on the port on the CPU, in
   the shipped mode (pipelined, cooperative mapping): LOST on black frames,
   OK again within ten replayed frames, at the pose the first pass recorded
@@ -154,6 +162,46 @@ def test_pnp_matches_jax(jax_mods, case):
     if case != "few":
         np.testing.assert_allclose(t.Tcw.numpy(), np.asarray(r.Tcw), atol=1e-3)
         assert np.abs(t.Tcw.numpy() - T).max() < (5e-3 if case == "exact" else 1e-2)
+
+
+def _wall_case(rng, n=200, outliers=80):
+    """Points on one tilted plane 5-7 units ahead, seen from a pose near
+    the identity, with ``outliers`` correspondences replaced by noise."""
+    from os1_tpu_torch.geometry import se3
+
+    ab = rng.uniform(-2, 2, size=(n, 2))
+    normal = np.array([0.2, -0.1, 1.0]) / np.linalg.norm([0.2, -0.1, 1.0])
+    e1 = np.cross(normal, [0.0, 1.0, 0.0])
+    e1 /= np.linalg.norm(e1)
+    e2 = np.cross(normal, e1)
+    pts = (np.array([0.3, -0.2, 6.0]) + ab[:, :1] * e1 + ab[:, 1:] * e2).astype(np.float32)
+    xi = np.concatenate([rng.normal(0, 0.3, 3), rng.normal(0, 0.1, 3)])
+    T = se3.exp(torch.as_tensor(xi, dtype=torch.float32)).numpy()
+    pc = pts @ T[:3, :3].T + T[:3, 3]
+    uv = np.stack([400 * pc[:, 0] / pc[:, 2] + 320, 400 * pc[:, 1] / pc[:, 2] + 240],
+                  -1).astype(np.float32)
+    bad = rng.choice(n, outliers, replace=False)
+    uv[bad] = rng.uniform([0, 0], [640, 480], size=(outliers, 2))
+    return pts, uv, T
+
+
+def test_pnp_on_a_plane(jax_mods):
+    jax, jnp = jax_mods
+    from os1_tpu.solvers.pnp import solve_pnp as jsolve
+
+    from os1_tpu_torch.solvers.pnp import solve_pnp
+
+    pts, uv, T = _wall_case(np.random.default_rng(3))
+    n = len(pts)
+    key = jax.random.PRNGKey(5)
+    args = (torch.from_numpy(pts), torch.from_numpy(uv), torch.ones(n),
+            torch.ones(n, dtype=torch.bool), torch.from_numpy(INTR))
+    t = solve_pnp(*args, JaxDraws(key))
+    assert bool(t.success) and int(t.n_inliers) >= 110
+    assert np.abs(t.Tcw.numpy() - T).max() < 1e-2
+    r = jsolve(jnp.asarray(pts), jnp.asarray(uv), jnp.ones(n), jnp.ones(n, bool),
+               jnp.asarray(INTR), key)
+    assert not (bool(r.success) and np.abs(np.asarray(r.Tcw) - T).max() < 1e-2)
 
 
 def test_pnp_lanes_equal_single_solves():
@@ -311,6 +359,45 @@ def test_relocalizer_matches_jax(jax_mods, jax_map, monkeypatch):
 
 
 # ---------------------------------------------------- blackout, end to end --
+
+def test_first_candidate_takes_its_best_lane(monkeypatch):
+    """Lane 0 fails PnP, lane 2 (the same keyframe, other draws) passes with
+    60 inliers: the relocalizer accepts lane 2's pose and bindings."""
+    from types import SimpleNamespace
+
+    from os1_tpu_torch.pipeline import relocalization as reloc
+
+    n, kf = 64, 3
+    store = SimpleNamespace(kf_obs_point=np.full((8, n), -1, np.int64),
+                            pt_valid=np.ones(128, bool))
+    store.kf_obs_point[kf, :40] = np.arange(40)
+    head = np.zeros((reloc.RELOC_C, 20), np.float32)
+    head[:, 0] = 40  # matches
+    head[:, 2] = 5  # polished inliers
+    head[2, 1:3] = (1.0, 60.0)  # lane 2: PnP succeeded, 60 inliers
+    head[2, 4:] = np.eye(4, dtype=np.float32).reshape(-1) * 2
+    bind = np.full((reloc.RELOC_C, n), -1, np.int64)
+    bind[2, :60] = np.arange(60)
+    seen = {}
+
+    def fake_program(*args):
+        seen["cand_idx"] = args[5].numpy()
+        return torch.from_numpy(head), torch.from_numpy(bind)
+
+    monkeypatch.setattr(reloc, "_reloc_candidates", fake_program)
+    mirror = SimpleNamespace(device=torch.device("cpu"), kf_desc=None, kf_angle=None,
+                             kf_obs_point=None, pt_xyz=None, pt_valid=None)
+    cfg = SimpleNamespace(intr=np.array([400.0, 400.0, 320.0, 240.0], np.float32))
+    r = reloc.Relocalizer(cfg=cfg, store=store, db=None, mirror=mirror, sampler=lambda *a: None)
+    r._candidates = lambda frame: [kf]
+    frame = SimpleNamespace(feats=SimpleNamespace(desc=None, valid=None, angle=None),
+                            xy_un=None, sigma2=None)
+    ok, T, b = r(frame)
+    assert list(seen["cand_idx"]) == [kf] * reloc.RELOC_C
+    assert ok and r.last_reloc_kf == kf
+    assert np.array_equal(T, np.eye(4, dtype=np.float32) * 2)
+    assert np.array_equal(b, bind[2])
+
 
 def test_blackout_then_relocalize():
     from os1_tpu_torch.features.orb import OrbConfig

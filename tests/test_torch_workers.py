@@ -12,6 +12,11 @@
   pacer free, and with a thread ticking it every millisecond as tracked
   frames do. The port also keeps the exception (``errors``); the JAX package
   only prints it.
+- Keyframe culling spares the keyframes still waiting for their pass
+  (``MappingWorker.queued``, wired into ``LocalMapper.queued_fn`` by the
+  threaded System): a waiting keyframe holds only old, well-observed points
+  and looks redundant before its pass has triangulated anything. Without
+  the rule (the JAX package's) it is culled and its pass skipped.
 - ``MapLock`` adds up the time a thread waits for it, per thread.
 - ``HostReads``, ``StageTimer`` and the kernel wrappers' launch counters
   stay exact when 32 threads update them at once, with the interpreter
@@ -160,6 +165,82 @@ def test_worker_protocol_matches_jax(pacing):
     assert ("shut down", False, False) in port["seen"]
     assert [(kf, type(e)) for kf, e in port["mw"].errors] == [(5, ValueError)]
     assert port["lw"].errors == []
+
+
+def test_worker_lists_the_keyframes_waiting_for_their_pass():
+    """``queued`` names the keyframes behind the pass in flight, in order,
+    and drops each as its pass starts."""
+    mapper = FakeMapper()
+    mw = tworkers.MappingWorker(mapper, threading.RLock())
+    try:
+        with mw.pacer.free_running():
+            mw.insert_keyframe(1)
+            assert _until(lambda: len(mapper.passes) == 1)
+            mw.insert_keyframe(2)
+            mw.insert_keyframe(3)
+            assert mw.queued() == [2, 3]
+            mapper.gate(1).set()
+            assert _until(lambda: len(mapper.passes) == 2)
+            assert mw.queued() == [3]
+            for kf in (2, 3):
+                mapper.gate(kf).set()
+            assert mw.wait_idle(TIMEOUT)
+            assert mw.queued() == []
+    finally:
+        mw.shutdown(timeout=TIMEOUT)
+
+
+def _redundant_map():
+    """Eight keyframes that all observe the same 40 points (every point seen
+    by all eight, so every keyframe is 100% redundant), and a LocalMapper on
+    them. Keyframe 7 is the one whose pass runs the culling."""
+    import numpy as np
+    import torch
+
+    from os1_tpu_torch.features.orb import OrbConfig
+    from os1_tpu_torch.geometry.camera import Camera
+    from os1_tpu_torch.map.store import MapConfig, MapStore
+    from os1_tpu_torch.pipeline.config import SlamConfig
+    from os1_tpu_torch.pipeline.local_mapping import LocalMapper
+
+    class _Mirror:
+        device = torch.device("cpu")
+
+    cfg = SlamConfig(camera=Camera.make(100.0, 100.0, 40.0, 30.0, width=80, height=60),
+                     orb=OrbConfig(height=60, width=80, n_features=40, n_levels=2),
+                     map=MapConfig(max_keyframes=8, max_points=64, n_features=40,
+                                   max_obs_per_point=8))
+    store = MapStore(cfg.map)
+    for _ in range(8):
+        store.add_keyframe_pending(np.eye(4), frame_id=0)
+    pts = store.alloc_points(40)
+    store.pt_valid[pts] = True
+    for k in range(8):
+        store.add_observations(pts, np.full(40, k), np.arange(40))
+    return store, LocalMapper(cfg=cfg, store=store, mirror=_Mirror())
+
+
+@pytest.mark.parametrize("queued", [[], [2], [2, 5]])
+def test_culling_spares_keyframes_waiting_for_their_pass(queued):
+    store, mapper = _redundant_map()
+    culled = []
+    mapper.on_cull_keyframe = culled.append
+    mapper.queued_fn = lambda: list(queued)
+    mapper.cull_keyframes(7)
+    assert all(store.kf_valid[k] for k in queued)
+    assert not set(culled) & set(queued) and not set(culled) & {0, 1, 7}
+    # The gauge and the pass's own keyframe stay; the first unprotected
+    # covisible keyframe goes (then its points are seen by fewer than four).
+    first = min(set(range(2, 7)) - set(queued))
+    assert culled[0] == first
+
+
+def test_without_the_rule_a_waiting_keyframe_is_culled():
+    """The JAX package's rule, no queue: keyframe 2 is culled although its
+    pass has not run."""
+    store, mapper = _redundant_map()
+    mapper.cull_keyframes(7)
+    assert not store.kf_valid[2]
 
 
 def test_loop_worker_keeps_errors():
