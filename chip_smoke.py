@@ -8,7 +8,8 @@ fails (non-zero exit, no final result line) if any phase fails:
 
   1. device: a CUDA card is required; prints its name and power limit;
   2. build: compiles every csrc/*.cu for sm_90a from this checkout, one nvcc
-     per source, all started together;
+     per source, and the host libraries (csrc/*.cpp) with g++, all started
+     together;
   3. kernels vs plain: each kernel against its plain PyTorch version on the
      card at the main path's shapes and ragged ones, exactly, with the
      device time of both (CUDA-graph replay, CUDA events), the time of the
@@ -93,13 +94,16 @@ fails (non-zero exit, no final result line) if any phase fails:
      pass over the bench orbit (after [orbit-loop]; init by frame 10, OK on
      85% of the frames from the first OK one, ATE <= 0.2) and one over the
      loop sequence (after [loop]; ATE <= 0.22, a loop closed, corrected on
-     the LoopClosing thread, a global-BA thread spawned and joined); both
+     the LoopClosing thread, a global-BA thread spawned and joined, no frame
+     lost in the 10 frames after the correction); both
      gated on every keyframe materialized and nothing pending after flush, no
      exception caught by a worker thread and launches of every kernel of the
      path. It prints frames/s, p50/p99, host reads and launches a frame by
      thread, the map-lock wait by thread and the worker queue depths, beside
      the shipped mode's frames/s over the same frames ([orbit-loop], [loop]'s
-     first pass). The trajectory is not deterministic and not gated;
+     first pass), and the host ms a call of the stages that update the
+     points' derived state (the distinctive descriptor in host C++). The
+     trajectory is not deterministic and not gated;
  15. photo, bench.py's third sequence (bench.py:95-113, gated at :148-155):
      the photo room (io/realimg.photo_room_scene(), walls textured with the
      packaged photographs) along loop_trajectory(300) in the shipped mode
@@ -123,8 +127,20 @@ fails (non-zero exit, no final result line) if any phase fails:
      --save-trajectory T --save-map M`` as a subprocess (the threaded
      default): 120 frames, final state OK, 90% tracked, the ATE reported, the
      files written; then ``--load-map M --localization --frames 30``: it
-     relocalizes and tracks, and the map's counts do not change; then
-     ``--warmup``, which exits 0 with the three libraries built.
+     relocalizes and tracks, and the map's counts do not change; beside
+     them ``--warmup``, which exits 0 with the four libraries built and
+     ``System.warmup()`` run;
+ 18. warmup (run after [loop]): System.warmup() timed on a fresh shipped
+     system with loop closing on, in a process of its own
+     (``--warmup-pass``), K1, P1 and P2 launched inside it; then bench.py's
+     loop sequence tracked once on that system, gated as [loop] (ATE <=
+     0.22, a loop closed, launches of every kernel of the path); its first
+     correction's loop.correct and loop.essential host ms beside [loop]'s
+     first and second pass, and whether the first-correction gap closed
+     (reported, not gated).
+
+Every mapped path prints its local BA's LM iterations and bench.py's
+local-BA iterations/s.
 
 Every tracking path runs the fused match kernel (every matcher, one launch a
 call; relocalization's five candidates are one 5-lane launch, checked in
@@ -154,7 +170,6 @@ import subprocess
 import sys
 import tempfile
 import time
-from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -255,20 +270,17 @@ def phase_device():
 
 def phase_build():
     """Build every library from csrc/, the compilers run side by side: the
-    CUDA kernels with nvcc, the host BoW library with g++."""
-    from os1_tpu_torch.ops import pallas_hamming, patches
-    from os1_tpu_torch.vocab import native
+    CUDA kernels with nvcc, the host BoW library and the host helpers with
+    g++."""
+    from os1_tpu_torch.ops.cuda_build import load_libraries
 
-    libs = (pallas_hamming.LIBRARY, patches.LIBRARY, native.LIBRARY)
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(libs)) as ex:
-        list(ex.map(lambda lib: lib.load(), libs))
+    built = load_libraries(cuda=True)
     dt = time.perf_counter() - t0
-    for lib in libs:
-        built = (f"{lib.build_seconds:.3f}s" if lib.build_seconds is not None
-                 else "already built in _build/")
-        target = "the host" if lib.source.endswith(".cpp") else "sm_90a"
-        log(f"[build] {os.path.relpath(lib.source)} for {target}: {built}")
+    for source, seconds in built.items():
+        target = "the host" if source.endswith(".cpp") else "sm_90a"
+        done = f"{seconds:.3f}s" if seconds is not None else "already built in _build/"
+        log(f"[build] os1_tpu_torch/csrc/{source} for {target}: {done}")
     log(f"[build] all kernels loaded in {dt:.3f}s")
     return dt
 
@@ -661,6 +673,13 @@ def build_system(device, mapping: bool, shipped: bool = False, loop: bool = Fals
                   device=device)
 
 
+# The local BA's stages whose host time bench.py's iterations/s divides by.
+BA_STAGES = ("lm.ba.assemble", "lm.ba.dispatch", "lm.ba.fetch", "lm.local_ba")
+# The mapping stages that call MapStore.update_point_derived (the host
+# helper's distinctive descriptor), printed by [threaded].
+DERIVED_STAGES = ("lm.materialize", "lm.tri.apply", "lm.fuse.apply")
+GATE_AFTER_CORRECTION = 10  # [threaded] loop: no LOST frame this many frames after a correction
+
 # The kernels both tracking paths launch; hamming_matrix_cuda is counted but
 # no longer on them.
 PATH_KERNELS = ("gated_match_cuda", "extract_patches_cuda", "sample_patches_cuda")
@@ -750,7 +769,10 @@ def summarize(sys_, lat, ok, reads, launches, poses, stretch_end=None):
            else float("inf"))
     lat_ok = lat[first + 1:stretch_end]  # frames tracked by the fused step
     st = sys_.store
+    ba_wall = sum(sys_.timer.totals.get(k, 0.0) for k in BA_STAGES)
     return dict(
+        ba_iters=sys_.mapper.ba_iters,
+        ba_iters_per_s=sys_.mapper.ba_iters / ba_wall if ba_wall > 0 else 0.0,
         init_frame=first, lost_at=lost_at, n_ok=int(ok.sum()), ate=ate, finite=finite,
         keyframes=st.n_keyframes(), keyframes_culled=int(st._kf_seq_next - st.n_keyframes()),
         points=st.n_points(), launches=launches,
@@ -765,6 +787,8 @@ def summarize(sys_, lat, ok, reads, launches, poses, stretch_end=None):
 
 def _log_path(tag, res):
     log(f"[{tag}] states {res['states']}")
+    log(f"[{tag}] local BA: {res['ba_iters']} LM iterations, {res['ba_iters_per_s']:.1f} "
+        f"iterations/s of local-BA stage time (bench.py's local-BA iterations/s)")
     log(f"[{tag}] init at frame {res['init_frame']} (gate <= {GATE_INIT_BY}); lost at "
         f"{res['lost_at']}; {res['n_ok']} OK frames; {res['keyframes']} keyframes live, "
         f"{res['keyframes_culled']} culled, {res['points']} points; ATE {res['ate']:.6f}")
@@ -1181,6 +1205,101 @@ def phase_loop(frames, poses, device="cuda"):
     return dict(first=r1, second=r2, rerun_identical=same, stages=stages,
                 stages_host=stages_host, gba=gba,
                 all_stages={k: [timer.totals[k], timer.counts[k]] for k in timer.totals}), sys1
+
+
+def _warmup_pass(path, out_path, device="cuda"):
+    """[warmup]'s pass in a process of its own (``--warmup-pass NPZ``): a
+    fresh shipped system with loop closing on, ``System.warmup()`` timed,
+    then the loop sequence in NPZ tracked once on it. Writes its numbers to
+    ``out_path``."""
+    with np.load(path) as z:
+        frames, poses = z["frames"], list(z["poses"])
+    warm = {}
+
+    def on_build(s):
+        _sync(device)
+        t0 = time.perf_counter()
+        warm["seconds"] = s.warmup()
+        _sync(device)
+        warm.update(wall_s=time.perf_counter() - t0, launches=s.warmup_launches)
+
+    _peak_mem(device, reset=True)
+    sys_, lat, ok, reads, launches = drive(frames, mapping=True, device=device, shipped=True,
+                                           loop=True, on_build=on_build)
+    res, traj = summarize(sys_, lat, ok, reads, launches, poses, stretch_end=len(frames))
+    tm, lc = sys_.timer, sys_.loop_closer
+    res.update(warmup=warm, sha256=_traj_sha(traj), peak_mem_bytes=_peak_mem(device), n_loops_closed=lc.n_loops_closed,
+               loop_edges=[list(e) for e in lc.loop_edges], wall_fps=len(frames) / sys_.wall_s,
+               stages_host={k: dict(total_s=tm.totals[k], calls=tm.counts[k],
+                                    ms_per_call=tm.totals[k] / tm.counts[k] * 1e3)
+                            for k in ("lm.ba.dispatch",) + LOOP_STAGES if tm.counts.get(k)})
+    with open(out_path, "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def phase_warmup(frames, poses, loop_res):
+    """System.warmup() on a fresh shipped system with loop closing on, in a
+    process of its own (a fresh process pays every first use, as a user's
+    does): its seconds and the kernel launches inside it (K1, P1 and P2
+    gated), then bench.py's loop sequence tracked once on that system, gated
+    as [loop] is (ATE <= 0.22, a loop closed, launches of every kernel of the
+    path). Prints the first correction's loop.correct and loop.essential host
+    ms beside [loop]'s first pass (this process's first correction) and
+    second, and whether the first-correction gap closed (reported, not
+    gated: the warmed correction within 25% of [loop]'s second)."""
+    tmp = tempfile.mkdtemp(prefix="os1_warmup_")
+    try:
+        path, out_path = os.path.join(tmp, "loop.npz"), os.path.join(tmp, "warmup.json")
+        np.savez(path, frames=frames, poses=np.stack(poses))
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--warmup-pass", path,
+                               "--json", out_path], cwd=os.path.dirname(os.path.abspath(__file__)),
+                              capture_output=True, text=True, timeout=900)
+        secs = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise RuntimeError(f"warmup: the pass failed (exit {proc.returncode}): "
+                               f"{proc.stderr[-3000:]}")
+        with open(out_path) as f:
+            res = json.load(f)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    warm = res["warmup"]
+    res["process_s"] = secs
+    log(f"[warmup] System.warmup() {warm['seconds']:.3f}s (synchronised {warm['wall_s']:.3f}s) "
+        f"in a fresh process ({secs:.1f}s in all with the pass); kernel launches inside it "
+        f"{warm['launches']}")
+    _log_path("warmup pass", res)
+    first, second = loop_res["stages_host"], loop_res["stages"]
+    rows = {}
+    for k in ("loop.correct", "loop.essential"):
+        rows[k] = [res["stages_host"].get(k, {}).get("ms_per_call"),
+                   first.get(k, {}).get("ms_per_call"), second.get(k, {}).get("ms_per_call")]
+    log("[warmup] first correction, host ms a call (warmed pass; [loop] first pass, this "
+        "process's first correction; [loop] second pass, synchronised): " + "; ".join(
+            f"{k} {v}" for k, v in rows.items()))
+    warmed, second_ms = rows["loop.correct"][0], rows["loop.correct"][2]
+    res["gap_closed"] = (warmed is not None and second_ms is not None
+                         and warmed <= 1.25 * second_ms)
+    res["first_correction_ms"] = rows
+    res["same_as_loop"] = res["sha256"] == loop_res["first"]["sha256"]
+    log(f"[warmup] first-correction gap closed (within 25% of the second pass's): "
+        f"{res['gap_closed']} (not gated); loops {res['loop_edges']}; trajectory equal to "
+        f"[loop]'s {res['same_as_loop']} (not gated)")
+    fails = []
+    for k in PATH_KERNELS:
+        if warm["launches"].get(k, 0) <= 0:
+            fails.append(f"{k} never launched inside System.warmup()")
+    if not res["ate"] <= GATE_ATE_LOOP:
+        fails.append(f"ATE {res['ate']} > {GATE_ATE_LOOP}")
+    if res["n_loops_closed"] < GATE_MIN_LOOPS:
+        fails.append(f"{res['n_loops_closed']} loops closed < {GATE_MIN_LOOPS}")
+    if not res["finite"]:
+        fails.append("non-finite or misshaped poses")
+    _launch_gate(res, fails)
+    if fails:
+        raise RuntimeError("warmup failed: " + "; ".join(fails))
+    return res
 
 
 def _gba_chunk(sys_, device):
@@ -1813,13 +1932,16 @@ def phase_threaded(tag, frames, poses, coop_ref, device="cuda"):
     pass over the same frames in this call) frames/s beside its own."""
     import threading
 
-    corrected_on = []
+    corrected_on, corrected_at = [], []
 
     def on_build(s):
         correct = s.loop_closer.correct
 
         def traced(*a, **kw):
             corrected_on.append(threading.current_thread().name)
+            tr = s.tracker  # under the map lock: the last frame applied, the caller's frame
+            corrected_at.append((tr.last.frame_id if tr.last is not None else -1,
+                                 tr.frame_id - 1))
             return correct(*a, **kw)
 
         s.loop_closer.correct = traced
@@ -1855,6 +1977,13 @@ def phase_threaded(tag, frames, poses, coop_ref, device="cuda"):
             coop_fps_ok=coop_ref["fps_ok"], coop_p50_ms=coop_ref["p50_ms"],
             coop_p99_ms=coop_ref["p99_ms"], coop_wall_fps=coop_ref["wall_fps"])
         res["tracker_lock_wait_ms_per_frame"] = res["lock_wait_s"].get("MainThread", 0.0) * 1e3 / n
+        tm = sys_.timer
+        res["derived_stages_ms"] = {k: tm.totals[k] / tm.counts[k] * 1e3
+                                    for k in DERIVED_STAGES if tm.counts.get(k)}
+        res["corrected_at"] = corrected_at
+        res["lost_after_correction"] = sorted({
+            int(f) for f, _ in sys_.tracker.loss_log for last, cur in corrected_at
+            if last < int(f) <= cur + GATE_AFTER_CORRECTION})
         label = f"threaded {tag}"
         _log_path(label, res)
         log(f"[{label}] whole run incl. flush {sys_.wall_s:.3f}s = {res['wall_fps']:.3f} frames/s; "
@@ -1871,6 +2000,12 @@ def phase_threaded(tag, frames, poses, coop_ref, device="cuda"):
                         for t, w in res["lock_wait_s"].items())
             + f" (tracker {res['tracker_lock_wait_ms_per_frame']:.3f} ms a frame); queue depth "
             f"(mapping, loop): max {res['queue_max']}, mean after a frame {res['queue_mean']}")
+        log(f"[{label}] corrections at (last frame applied, frame in the call) "
+            f"{corrected_at}; frames lost within {GATE_AFTER_CORRECTION} frames after one: "
+            f"{res['lost_after_correction']}")
+        log(f"[{label}] host ms a call of the stages that update the points' derived state "
+            f"(the distinctive descriptor in host C++): " + "; ".join(
+                f"{k} {v:.3f}" for k, v in res["derived_stages_ms"].items()))
         log(f"[{label}] all keyframes materialized {res['all_materialized']}; idle after flush "
             f"{res['idle_after_flush']}; worker errors {res['worker_errors']}; bindings dropped "
             f"because their point slot was refilled in flight {res['stale_binds']}")
@@ -1891,6 +2026,9 @@ def phase_threaded(tag, frames, poses, coop_ref, device="cuda"):
                 fails.append(f"corrections not on the LoopClosing thread: {corrected_on}")
             if lc.gba_spawned < 1 or not res["gba_joined"]:
                 fails.append("no global-BA thread spawned and joined")
+            if res["lost_after_correction"]:
+                fails.append(f"frames {res['lost_after_correction']} lost within "
+                             f"{GATE_AFTER_CORRECTION} frames after a correction")
         if not res["finite"]:
             fails.append("non-finite or misshaped poses")
         if not (res["all_materialized"] and res["idle_after_flush"]):
@@ -2115,10 +2253,15 @@ def _summary(stdout):
 
 def phase_cli():
     """The user's entry point as a subprocess on the card, in its threaded
-    default: the synthetic orbit (120 frames, writing the trajectory and the
-    map), the map reloaded in localization mode (30 frames: it relocalizes,
-    tracks, and the map's counts stay), then --warmup."""
+    default: the synthetic orbit (CLI_FRAMES frames, writing the trajectory
+    and the map), the map reloaded in localization mode (CLI_LOC_FRAMES
+    frames: it relocalizes, tracks, and the map's counts stay), and --warmup
+    in a process beside those two."""
+    from concurrent.futures import ThreadPoolExecutor
+
     tmp = tempfile.mkdtemp(prefix="os1_cli_")
+    side = ThreadPoolExecutor(1)
+    warm = side.submit(_run_cli, ["--warmup"])
     try:
         traj, base = os.path.join(tmp, "kf_traj.txt"), os.path.join(tmp, "map")
         rc, secs, out, err = _run_cli(["--synthetic", "--frames", str(CLI_FRAMES),
@@ -2156,15 +2299,18 @@ def phase_cli():
         if (loc["keyframes"], loc["map_points"]) != (run["keyframes"], run["map_points"]):
             fails.append("the frozen map's counts changed")
 
-        rc, secs3, out, err = _run_cli(["--warmup"])
+        rc, secs3, out, err = warm.result()
         log(f"[cli] run_slam --warmup: exit {rc} in {secs3:.1f}s; {out.strip()}")
-        if rc != 0 or not out.startswith("warmup: 3 libraries ready"):
+        lines = out.splitlines()
+        if rc != 0 or len(lines) < 2 or not lines[0].startswith("warmup: 4 libraries ready") \
+                or not lines[1].startswith("warmup: System.warmup() in "):
             fails.append(f"--warmup: exit {rc}, {out.strip()} {err[-500:]}")
         if fails:
             raise RuntimeError("cli failed: " + "; ".join(fails))
         return dict(run=run, run_s=secs, localization=loc, localization_s=secs2, warmup_s=secs3,
                     trajectory_rows=len(rows), map_bytes=files)
     finally:
+        side.shutdown(wait=True)
         shutil.rmtree(tmp, ignore_errors=True)
 
 
@@ -2257,7 +2403,10 @@ def render_photo(n_frames):
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--json", help="write every number of the run to this file")
+    parser.add_argument("--warmup-pass", metavar="NPZ", help=argparse.SUPPRESS)
     args = parser.parse_args()
+    if args.warmup_pass:  # [warmup]'s pass, in a process of its own
+        return _warmup_pass(args.warmup_pass, args.json)
 
     import torch
 
@@ -2290,6 +2439,7 @@ def main() -> int:
 
     frames, poses = loop_frames, loop_poses
     out["loop"], sys_a = phase_loop(frames, poses)
+    out["warmup"] = phase_warmup(frames, poses, out["loop"])
     out["threaded_loop"] = phase_threaded("loop", frames, poses, out["loop"]["first"])
     out["osmap"] = phase_osmap(sys_a, sys_o, frames, poses)
     out["mesh"] = phase_mesh(frames, poses, sys_a, out["loop"])

@@ -24,6 +24,8 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
+from .. import native
+
 
 @dataclass(frozen=True)
 class MapConfig:
@@ -508,25 +510,8 @@ class MapStore:
         self.pt_min_dist[ids] = max_d / (scale_factor ** (n_levels - 1))
 
         # Distinctive descriptor: min median Hamming among live observations
-        # (MapPoint::ComputeDistinctiveDescriptors), in numpy. Pairwise
-        # Hamming via the popcount identity |a ^ b| = |a| + |b| - 2 a.b on
-        # unpacked bits — a [M, 256] matmul per point instead of a
-        # [M, M, 256] boolean broadcast. Gives the same slot as the
-        # reference's native C++ form (first minimum of the numpy median).
+        # (MapPoint::ComputeDistinctiveDescriptors), in host C++
+        # (csrc/native.cpp); native.distinctive_plain is its numpy form.
         descs = self.kf_desc[kfs_c, fts_c]  # [n, M, 8] uint32
-        bits = np.unpackbits(
-            descs.view(np.uint8).reshape(len(ids), M, 32), axis=-1
-        ).astype(np.float32)  # [n, M, 256]
-        ones = bits.sum(-1)  # [n, M]
-        dot = np.einsum("nmb,nkb->nmk", bits, bits)
-        d = (ones[:, :, None] + ones[:, None, :] - 2.0 * dot).astype(np.float64)
-        pair_live = live[:, :, None] & live[:, None, :]
-        d = np.where(pair_live, d, np.nan)
-        # Diagonal = 0 unconditionally: keeps non-live rows from being
-        # all-NaN (their medians are discarded by the `live` mask below).
-        d[:, np.arange(M), np.arange(M)] = 0.0
-        with np.errstate(all="ignore"):
-            med = np.nanmedian(d, axis=2)  # [n, M]
-        med = np.where(live, med, np.inf)
-        best = np.argmin(med, axis=1)
+        best = native.point_distinctive_desc(descs, live)
         self.pt_desc[ids] = descs[rr, np.clip(best, 0, None)]

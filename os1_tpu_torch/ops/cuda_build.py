@@ -15,6 +15,7 @@ exact when the tracker and the worker threads launch at once.
 from __future__ import annotations
 
 import ctypes
+import contextlib
 import hashlib
 import os
 import shutil
@@ -45,6 +46,42 @@ def reset_launches(fn) -> None:
     with _COUNT_LOCK:
         fn.launches = 0
         fn.launches_by_thread = {}
+
+
+@contextlib.contextmanager
+def launches_apart(fns):
+    """Count the launches made inside the block apart: on exit the dict it
+    yields holds each wrapper's launches by name, and the wrappers' own
+    counters are set back to what they were before the block."""
+    with _COUNT_LOCK:
+        saved = [(fn, fn.launches, dict(fn.launches_by_thread)) for fn in fns]
+    inside = {}
+    try:
+        yield inside
+    finally:
+        with _COUNT_LOCK:
+            for fn, n, by_thread in saved:
+                inside[fn.__name__] = fn.launches - n
+                fn.launches, fn.launches_by_thread = n, by_thread
+
+
+def load_libraries(cuda: bool = True) -> dict:
+    """Build (if needed) and load every ``csrc/`` library the pipeline uses,
+    the compilers side by side: the host libraries, and with ``cuda`` the
+    CUDA kernels. Returns {source: build seconds, or None if it was already
+    built}."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from .. import native
+    from ..vocab import native as bow_native
+    from . import pallas_hamming, patches
+
+    libs = [bow_native.LIBRARY, native.LIBRARY]
+    if cuda:
+        libs += [pallas_hamming.LIBRARY, patches.LIBRARY]
+    with ThreadPoolExecutor(len(libs)) as pool:
+        list(pool.map(lambda lib: lib.load(), libs))
+    return {os.path.basename(lib.source): lib.build_seconds for lib in libs}
 
 
 def _nvcc() -> str:

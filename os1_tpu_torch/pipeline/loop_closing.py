@@ -468,6 +468,19 @@ class LoopCloser:
         pairs = np.stack([f1[pair_ok], f2[pair_ok]], axis=1).astype(np.int64)
         return True, out[4:20].reshape(4, 4).astype(np.float32), pairs
 
+    def essential_graph(self, S, kf_valid, fixed, edge_i, edge_j, edge_S) -> torch.Tensor:
+        """The essential graph's 20 LM iterations (Optimizer::
+        OptimizeEssentialGraph) on the device from host arrays, which go over
+        in one copy; edge-sharded over the mesh when one is wired. Returns
+        the optimized Sim3 nodes [K, 4, 4]."""
+        g = transfer.upload(dict(S=S, kf_valid=kf_valid, fixed=fixed, edge_i=edge_i,
+                                 edge_j=edge_j, edge_S=edge_S), self.device)
+        if self.mesh_backend is not None:  # edge-sharded over the mesh (config 5)
+            mesh = Mesh(self.mesh_backend.mesh.devices.reshape(-1), ("edges",))
+            ones = torch.ones(len(edge_i), dtype=torch.bool, device=self.device)
+            return distributed_pose_graph(**g, edge_valid=ones, mesh=mesh, iters=20)
+        return optimize_pose_graph(**g)
+
     # ------------------------------------------------------------------ #
     def correct(self, kf: int, cand: int, S_cl: np.ndarray, pairs: np.ndarray):
         """CorrectLoop (LoopClosing.cc:407-592): propagate the Sim3 over the
@@ -581,15 +594,8 @@ class LoopCloser:
         old_pose_all.update({i: corr_S[i] for i in group})
 
         with self.timer("loop.essential"):
-            g = transfer.upload(dict(S=S_nodes, kf_valid=st.kf_valid, fixed=fixed, edge_i=ei,
-                                     edge_j=ej, edge_S=eS.astype(np.float32)), self.device)
-            if self.mesh_backend is not None:  # edge-sharded over the mesh (config 5)
-                mesh = Mesh(self.mesh_backend.mesh.devices.reshape(-1), ("edges",))
-                ones = torch.ones(len(ei), dtype=torch.bool, device=self.device)
-                S_opt = distributed_pose_graph(**g, edge_valid=ones, mesh=mesh, iters=20)
-            else:
-                S_opt = optimize_pose_graph(**g)
-            S_opt = self.reads.numpy(S_opt)
+            S_opt = self.reads.numpy(self.essential_graph(S_nodes, st.kf_valid, fixed, ei, ej,
+                                                          eS.astype(np.float32)))
         # Poses written back and every point remapped through its first live
         # observer (Optimizer.cc:833-861), one affine transform per keyframe.
         new_T = sim3.to_se3(t(S_opt)).numpy()

@@ -279,25 +279,33 @@ class System:
     def _after_loop_correction(self):
         """Re-anchor the tracker after a loop correction moved the world:
         publish the corrected map, drop the frames in flight (their pose chain
-        is anchored in the old world), and remap the last frame's pose through
-        its reference keyframe's corrected pose.
+        is anchored in the old world) to track them again, and remap the last
+        frame's pose through its reference keyframe's corrected pose.
 
         The motion model survives a remap: it is a camera-to-camera motion,
-        and the previous pose is remapped with the last one. The reference
-        package clears it, and the pipelined tracker's next frame, three
-        frames past the last one applied once the two in flight are
-        dropped, is then predicted with no motion at all: on bench.py's loop
-        sequence on an NVIDIA H100 that frame was lost in every run, and
-        with the motion model kept it is not (chip_smoke.py [loop]).
+        and the previous pose is remapped with the last one. The dropped
+        frames, and a frame whose dispatch or read straddles the drop, are
+        tracked again on a new chain from the remapped pose before the next
+        frame (``Tracker.drop_in_flight(replay=True)``), so each is predicted
+        one frame ahead of the frame before it. The reference package clears
+        the motion model and discards the frames in flight: its next frame
+        is then predicted with no motion, three frames past the last one
+        applied; a kept motion model bridged that gap in the cooperative
+        mode, but on another thread the correction can land while a frame is
+        between its dispatch and its tail: on bench.py's loop sequence on an
+        NVIDIA H100 the next frame, four frames past the last one applied,
+        found almost no inliers at the motion search's first radius at every
+        correction, and was lost whenever the retry and the
+        reference-keyframe fallback failed too
+        (``scripts/threaded_repeats.py --trace``).
 
         With the worker threads on, this runs on the LoopClosing thread under
-        the map lock, which the tracker holds over a dispatch and over a
-        result's tail: a result read before the drop is discarded
-        (``Tracker.drop_in_flight``)."""
+        the map lock, which the tracker holds over a dispatch's snapshot and
+        over a result's tail."""
         with self.lock:
             self.mirror.refresh()
             tr = self.tracker
-            tr.drop_in_flight()
+            tr.drop_in_flight(replay=True)
             tr._prev_Tcw = None
             remapped = False
             if tr.last is not None and tr.trajectory:
@@ -310,6 +318,110 @@ class System:
                 tr._prev_Tcw = (np.linalg.inv(tr.velocity) @ tr.last.Tcw).astype(np.float32)
             else:
                 tr.velocity = None
+
+    # ------------------------------------------------------------------ #
+    def warmup(self, include_loop: bool = True) -> float:
+        """Pay the first-use costs before the first frame, and return the
+        seconds it took. On a card these are not compiles (the JAX package's
+        warm-up fills the XLA cache): the ``csrc/`` builds, the lazy loading
+        of CUDA modules, the cuBLAS and cuSOLVER handles behind
+        ``torch.linalg``, the caching allocator's first growth at each
+        bucket shape and the first launch of each program. Each program the
+        pipeline runs is launched once, on zero inputs at the port's shapes:
+        the frame builder on both input dtypes, the fused tracker step, the
+        bootstrap and the median depth, the mirror's keyframe-row insert,
+        the local-map search, the BoW descent, the relocalization candidates
+        program (match, PnP and polish on 5 lanes), the mapper's programs
+        (``LocalMapper.warmup``) and, with ``include_loop``, a Sim3 candidate
+        program and the essential graph at 256 and 1024 edges.
+
+        The system is left as it was: no keyframe, point or database entry,
+        the tracker's state and the samplers' draws untouched, the mirror
+        republished from the store. The kernel launches made inside are kept
+        out of the wrappers' counters and reported in
+        ``self.warmup_launches``."""
+        import time
+
+        from ..ops.cuda_build import launches_apart, load_libraries
+        from ..ops.pallas_hamming import gated_match_cuda, hamming_matrix_cuda
+        from ..ops.patches import extract_patches_cuda, sample_patches_cuda
+        from ..solvers.initializer import GumbelSampler
+        from . import tracking_kernels as tk
+        from .loop_closing import PROJ_CAP, sim3_candidate_program
+        from .relocalization import RELOC_C, _reloc_candidates
+
+        t0 = time.perf_counter()
+        kernels = (gated_match_cuda, hamming_matrix_cuda, extract_patches_cuda,
+                   sample_patches_cuda)
+        cfg, tr, mir, dev = self.cfg, self.tracker, self.mirror, self.device
+        N, L, K = cfg.orb.n_features, cfg.th.max_local_points, self.store.cfg.max_keyframes
+        reads0 = self.reads.count
+        z = lambda *shape, dtype=torch.float32: torch.zeros(shape, dtype=dtype, device=dev)  # noqa: E731
+        eye = torch.eye(4, device=dev)
+        with launches_apart(kernels) as launched:
+            load_libraries(cuda=dev.type == "cuda")
+            # The frame builder on both input dtypes, the fused step.
+            tr._build(z(cfg.orb.height, cfg.orb.width, dtype=torch.uint8), tr.camera)
+            frame = tr._build(z(cfg.orb.height, cfg.orb.width), tr.camera)
+            mirror = (mir.pt_xyz, mir.pt_desc, mir.pt_valid, mir.pt_normal, mir.pt_min_dist,
+                      mir.pt_max_dist, mir.kf_desc, mir.kf_angle, mir.kf_obs_point)
+            out = tr._fused(*mirror, frame, tr.camera, tr._intr, eye, eye,
+                            torch.full((N,), -1, dtype=torch.int64, device=dev),
+                            frame.feats.octave, 0, False, z(L, dtype=torch.int32),
+                            z(L, dtype=torch.bool), False)
+            transfer.fetch(transfer.announce(out["packed"]), self.reads)
+            # Initialization: the bootstrap (its own draws), the median depth,
+            # the keyframe-row inserts.
+            self.reads.numpy(tk.bootstrap(frame, frame, tr._K, GumbelSampler(0, dev))[2])
+            self.reads.item(tk.compute_median_depth(eye, mir.pt_xyz, mir.pt_valid))
+            mir.insert_keyframe_row_device(0, frame)
+            mir.insert_keyframe_row(0)
+            mir.refresh_dynamic()
+            # The local-map search after a relocalization.
+            pts = torch.ones(L, 3, device=dev)
+            pts[:, 2] = 5.0
+            self.reads.numpy_all(tk.track_points(
+                eye, pts, z(L, 8, dtype=torch.int32), z(L, dtype=torch.bool),
+                z(L, dtype=torch.int32), z(L, 3), z(L), torch.full((L,), 100.0, device=dev),
+                z(N, dtype=torch.bool), z(N, 3), z(N, dtype=torch.bool), frame, tr.camera,
+                tr._intr, cfg.th.localmap_search_radius, scale_factor=cfg.orb.scale_factor,
+                n_levels=cfg.orb.n_levels, use_frustum=True, ratio=0.8)[:1])
+            # Place recognition and relocalization (its own draws).
+            self.db.compute_bow(np.zeros((N, 8), np.uint32), np.zeros(N, bool))
+            self.reads.numpy_all(_reloc_candidates(
+                frame.feats.desc, frame.feats.valid, frame.feats.angle, frame.xy_un,
+                frame.sigma2, z(RELOC_C, dtype=torch.int64), mir.kf_desc, mir.kf_angle,
+                mir.kf_obs_point, mir.pt_xyz, mir.pt_valid, tr._intr, GumbelSampler(42, dev)))
+            self.mapper.warmup()
+            if include_loop:
+                lc = self.loop_closer
+                zeros = lambda *shape, dtype=np.float32: np.zeros(shape, dtype)  # noqa: E731
+                xyz = zeros(N, 3)
+                xyz[:, 2] = 5.0
+                region_xyz = zeros(PROJ_CAP, 3)
+                region_xyz[:, 2] = 5.0
+                side = dict(desc=zeros(N, 8, dtype=np.uint32), bound=zeros(N, dtype=bool),
+                            angle=zeros(N), xy=zeros(N, 2), oct=zeros(N, dtype=np.int32),
+                            xyz=xyz)
+                snap = {f"{k}{i}": v for i in (1, 2) for k, v in side.items()}
+                snap.update(feat_valid1=zeros(N, dtype=bool),
+                            region_desc=zeros(PROJ_CAP, 8, dtype=np.uint32),
+                            region_xyz=region_xyz, region_ok=zeros(PROJ_CAP, dtype=bool),
+                            T_lw=np.eye(4, dtype=np.float32))
+                self.reads.numpy(sim3_candidate_program(
+                    **transfer.upload(snap, dev), intr=lc._intr, sigma2_table=lc._sigma2,
+                    sampler=GumbelSampler(7, dev))[0])
+                S = np.tile(np.eye(4, dtype=np.float32), (K, 1, 1))
+                fixed = np.zeros(K, bool)
+                fixed[0] = True
+                for E in (256, 1024):
+                    self.reads.numpy(lc.essential_graph(
+                        S, np.ones(K, bool), fixed, np.zeros(E, np.int64), np.ones(E, np.int64),
+                        np.tile(np.eye(4, dtype=np.float32), (E, 1, 1))))
+            mir.refresh()  # the device-inserted row 0 goes back to the store's
+        self.warmup_launches = launched
+        self.reads.count = reads0
+        return time.perf_counter() - t0
 
     # ------------------------------------------------------------------ #
     def track_monocular(self, img, timestamp: float = 0.0):

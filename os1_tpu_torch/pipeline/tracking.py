@@ -16,10 +16,13 @@ The map lock (``lock``, shared with the mapper, the loop closer and the
 System) is held over initialization, relocalization and a synchronous frame,
 as in the reference; a pipelined frame takes it to snapshot its inputs and
 again to extend the chain, runs its fused step between the two, and a
-result's host tail takes it after the result's read. A loop correction on
-another thread drops the frames in flight (:meth:`Tracker.drop_in_flight`);
-a frame dispatched, or a result read, across the drop is discarded, since
-its pose chain is anchored in the old world. A point culled while a frame is
+result's host tail takes it after the result's read. A loop correction
+(on another thread, or in the cooperative scheduler's step) drops the frames
+in flight (:meth:`Tracker.drop_in_flight`), since their pose chain is
+anchored in the old world, and so does a frame dispatched, or a result read,
+across the drop; the frames are kept and tracked again, oldest first, on a
+new chain from the remapped pose before the next frame, so no frame is
+skipped (:meth:`Tracker._replay_dropped`). A point culled while a frame is
 in flight may have its slot refilled before the frame is read: each binding
 is checked against the slot's allocation count (``MapStore.pt_gen``) the
 step saw, and a refilled slot is dropped from the result
@@ -131,6 +134,10 @@ class Tracker:
         # the mirror's pt_gen at dispatch)].
         self._pending = []
         self._anchor = 0  # raised by drop_in_flight: older results are stale
+        # Frames a re-anchoring dropped, (frame, fid, timestamp), tracked
+        # again before the next frame; _replay: whether the last drop keeps them.
+        self._dropped = []
+        self._replay = False
         self.stale_binds = 0  # bindings dropped because their slot held a new point
         # The last keyframe decision: (frame id, c1, c2, c3, c4, verdict), the
         # verdict one of "hold", "not_needed", "loop_closing", "refused", "insert".
@@ -153,6 +160,16 @@ class Tracker:
             frame = self._build(img_t, self.camera)
         fid = self.frame_id
         self.frame_id += 1
+        self._replay_dropped()
+        self._step(frame, fid, timestamp)
+        self._replay_dropped()  # this frame, if a correction dropped it
+        # Trajectory entries are recorded once per accepted frame, with the
+        # frame's own timestamp, by the success paths; pipelined results lag.
+        Tcw = self.last.Tcw if self.last is not None and self.state == TrackingState.OK else None
+        return self.state, Tcw
+
+    def _step(self, frame, fid, timestamp):
+        """Run one frame through the state machine."""
         if self.state in (TrackingState.NO_IMAGES_YET, TrackingState.NOT_INITIALIZED):
             with self.timer("trk.initialize"), self.lock:
                 self._monocular_initialization(frame, fid, timestamp)
@@ -162,10 +179,6 @@ class Tracker:
         else:
             with self.timer("trk.relocalize"), self.lock:
                 self._relocalize(frame, fid, timestamp)
-        # Trajectory entries are recorded once per accepted frame, with the
-        # frame's own timestamp, by the success paths; pipelined results lag.
-        Tcw = self.last.Tcw if self.last is not None and self.state == TrackingState.OK else None
-        return self.state, Tcw
 
     def _record_trajectory(self, timestamp, fid, Tcw):
         """Record the frame pose relative to the current reference keyframe."""
@@ -480,6 +493,7 @@ class Tracker:
         packed = transfer.announce(out["packed"])
         with self.lock:
             if anchor != self._anchor:
+                self._keep_dropped(frame, fid, timestamp)
                 return
             self._chain = dict(bind=out["bind"], T=out["Tcw"], prevT=ch["T"],
                                octave=frame.feats.octave, has_vel=True, gen=gen)
@@ -493,8 +507,9 @@ class Tracker:
             self._apply_result(*entry)
             if self.state != TrackingState.OK:
                 # The chain is poisoned: every frame in flight tracked against
-                # a lost pose. Discard them and let the state machine recover.
-                self.drop_in_flight()
+                # a lost pose. Discard them and let the state machine recover
+                # (the frames waiting to be tracked again stay queued).
+                self._discard_in_flight()
                 break
 
     def _apply_result(self, frame, fid, timestamp, packed, local_ids, anchor, gen):
@@ -503,8 +518,9 @@ class Tracker:
         with self.timer("trk.readback"):
             packed = transfer.fetch(packed, self.reads)
         with self.lock:
-            if anchor != self._anchor:
-                return  # the frames in flight were dropped while this one was read
+            if anchor != self._anchor:  # the frames in flight were dropped while this one was read
+                self._keep_dropped(frame, fid, timestamp)
+                return
             ok, Tcw, bind, n_inl, host = self._host_result(packed, local_ids, gen)
             if not ok:
                 self._mark_lost(frame, fid, timestamp, self.last.Tcw,
@@ -518,22 +534,60 @@ class Tracker:
         with self.lock:
             return self._pending.pop(0) if len(self._pending) > keep else None
 
-    def drop_in_flight(self):
+    def drop_in_flight(self, replay: bool = False):
         """Discard the frames in flight and the device chain: the next frame
-        starts a new chain from the last applied pose."""
+        starts a new chain from the last applied pose. With ``replay`` (a
+        loop correction's re-anchoring) the dropped frames, and a frame whose
+        dispatch or read straddles the drop, are kept and tracked again from
+        the remapped pose before the next frame (:meth:`_replay_dropped`);
+        without it, the frames kept by an earlier drop are forgotten too."""
+        with self.lock:
+            self._dropped = self._dropped + [e[:3] for e in self._pending] if replay else []
+            self._replay = replay
+            self._discard_in_flight()
+
+    def _discard_in_flight(self):
+        """Discard the frames in flight and the device chain, keeping the
+        frames queued to be tracked again."""
         with self.lock:
             self._pending.clear()
             self._chain = None
             self._anchor += 1
 
+    def _keep_dropped(self, frame, fid, timestamp):
+        """A frame the last drop caught between its dispatch and its tail
+        (under the map lock): kept for the replay if the drop keeps frames."""
+        if self._replay:
+            self._dropped.append((frame, fid, timestamp))
+
+    def _replay_dropped(self):
+        """Track the frames a re-anchoring dropped, oldest first, each through
+        the state machine as a new frame would go: while tracking holds, each
+        is dispatched on the new chain from the remapped pose, so that the
+        first of them is predicted one frame ahead of the last one applied;
+        once one is lost, the rest relocalize. The reference's tracker never
+        skips a frame: it waits on the map mutex over CorrectLoop."""
+        while True:
+            with self.lock:
+                if not self._dropped:
+                    return
+                self._dropped.sort(key=lambda e: e[1])
+                frame, fid, timestamp = self._dropped.pop(0)
+            self._step(frame, fid, timestamp)
+
     def flush(self):
-        """Apply the frames in flight (end of stream, mode switch)."""
-        while (entry := self._pop_pending()) is not None:
-            self._apply_result(*entry)
-            if self.state != TrackingState.OK:
-                self.drop_in_flight()
-        with self.lock:
-            self._chain = None
+        """Apply the frames in flight (end of stream, mode switch), the
+        frames a re-anchoring dropped included."""
+        while True:
+            self._replay_dropped()
+            while (entry := self._pop_pending()) is not None:
+                self._apply_result(*entry)
+                if self.state != TrackingState.OK:
+                    self._discard_in_flight()
+            with self.lock:
+                if not self._dropped:
+                    self._chain = None
+                    return
 
     def _local_candidates(self, bind):
         """Padded local-map candidate ids: points of the covisibility

@@ -13,8 +13,9 @@ request, and exits 1 if a worker thread caught an exception.
 
 Two options differ from the JAX package's: ``--device`` (``cuda``, the
 default, or ``cpu``), and ``--warmup``, which builds the hand-written
-libraries of ``csrc/`` into ``_build/`` and exits (the JAX package's fills
-its XLA compile cache).
+libraries of ``csrc/`` into ``_build/``, then runs ``System.warmup()`` on the
+run's configuration (the JAX package's fills its XLA compile cache), prints
+both times and exits.
 """
 from __future__ import annotations
 
@@ -51,26 +52,9 @@ def build_parser():
                    help="cpu to run on the CPU; the default is the card (cuda), and the run "
                         "stops with an error without one")
     p.add_argument("--warmup", action="store_true",
-                   help="build the csrc/ libraries into _build/ and exit; later runs "
-                        "start without compiling")
+                   help="build the csrc/ libraries into _build/, run System.warmup() and "
+                        "exit; later runs start without compiling")
     return p
-
-
-def warmup(device: str) -> dict:
-    """Build every ``csrc/`` library the pipeline loads, side by side (the
-    CUDA ones only for a CUDA device). Returns {source: seconds, or None if
-    it was already built}."""
-    from concurrent.futures import ThreadPoolExecutor
-
-    from .ops import pallas_hamming, patches
-    from .vocab import native
-
-    libs = [native.LIBRARY]
-    if device != "cpu":
-        libs += [pallas_hamming.LIBRARY, patches.LIBRARY]
-    with ThreadPoolExecutor(len(libs)) as pool:
-        list(pool.map(lambda lib: lib.load(), libs))
-    return {lib.source.rsplit("/", 1)[-1]: lib.build_seconds for lib in libs}
 
 
 def _synthetic(n_frames: int):
@@ -95,14 +79,33 @@ def _synthetic(n_frames: int):
 def main(argv=None):
     args = build_parser().parse_args(argv)
 
+    from .pipeline import System, TrackingState
+
     if args.warmup:
+        # The libraries first, then the system's first-use costs
+        # (System.warmup), on the configuration a run would use.
+        from .ops.cuda_build import load_libraries
+
         t0 = time.perf_counter()
-        built = warmup(args.device)
+        built = load_libraries(cuda=args.device != "cpu")
         print(f"warmup: {len(built)} libraries ready in {time.perf_counter() - t0:.1f} s "
               f"(build seconds: {built})")
-        return 0
+        if args.settings is None:
+            cfg = _synthetic(1)[0]
+        else:
+            from .io.config import load_slam_config
 
-    from .pipeline import System, TrackingState
+            cfg = load_slam_config(args.settings)
+        sys_ = System(cfg=cfg, enable_loop_closing=not args.no_loop_closing,
+                      pipelined=not args.sync, async_mapping=not args.sync,
+                      device=args.device)
+        try:
+            warm_s = sys_.warmup(include_loop=not args.no_loop_closing)
+        finally:
+            sys_.shutdown()
+        print(f"warmup: System.warmup() in {warm_s:.1f} s; kernel launches "
+              f"{sys_.warmup_launches}")
+        return 0
 
     gt_poses = None
     video_src = None

@@ -22,7 +22,8 @@ line, held against the JAX package where it has a counterpart.
   the CPU: the threaded default with loop closing, writing the trajectory
   and the map, prints the reference's summary keys with ``frames`` 12; the
   synchronous mode without loop closing too; the map reloaded in
-  localization mode keeps its counts; ``--warmup`` builds and exits 0.
+  localization mode keeps its counts; ``--warmup`` builds the host libraries
+  and runs ``System.warmup()`` on the settings' configuration, and exits 0.
 """
 import json
 import os
@@ -340,8 +341,18 @@ def test_run_slam_sync_without_loop_closing(capsys):
     assert out["final_state"] == "OK"
 
 
-def test_run_slam_warmup(capsys):
+def test_run_slam_warmup(tmp_path, capsys):
+    """--warmup builds the host libraries, then runs System.warmup() on the
+    settings' configuration (here at 320x240 with 512 features)."""
     from os1_tpu_torch.run_slam import main
 
-    assert main(["--warmup", "--device", "cpu"]) == 0
-    assert capsys.readouterr().out.startswith("warmup: 1 libraries ready")
+    small = (SETTINGS.replace("Camera.width: 640", "Camera.width: 320")
+             .replace("Camera.height: 480", "Camera.height: 240")
+             .replace("ORBextractor.nFeatures: 1000", "ORBextractor.nFeatures: 512")
+             .replace("ORBextractor.nLevels: 8", "ORBextractor.nLevels: 4"))
+    path = tmp_path / "small.yaml"
+    path.write_text(small)
+    assert main([str(path), "--warmup", "--device", "cpu"]) == 0
+    out = capsys.readouterr().out.splitlines()
+    assert out[0].startswith("warmup: 2 libraries ready")
+    assert out[1].startswith("warmup: System.warmup() in ")

@@ -348,7 +348,8 @@ def test_process_closes_like_jax(pair):
 
 
 def test_reanchoring_keeps_the_motion_model():
-    """After a correction the system drops the frames in flight and remaps
+    """After a correction the system drops the frames in flight, keeping
+    them to be tracked again (the JAX package discards them), and remaps
     the last frame's pose through its reference keyframe's corrected pose,
     as the JAX package does; the motion model survives, with the previous
     pose remapped alongside (the JAX package clears it, and the pipelined
@@ -379,13 +380,15 @@ def test_reanchoring_keeps_the_motion_model():
         tr.last = TrackedFrame(data=None, Tcw=T_last, bind=np.full(64, -1), frame_id=7,
                                timestamp=7 / 30)
         tr._record_trajectory(7 / 30, 7, T_last)
-        tr._pending, tr._chain = ["in flight"], {"T": None}
+        tr._pending = [("frame 8", 8, 8 / 30, "packed", "local ids", 0, "gen")]
+        tr._chain = {"T": None}
         G = pose([0.0, 0.05, 0.02], [0.1, -0.2, 0.05])  # the correction moves the world
         st.kf_T[tr.ref_kf] = T_ref @ G
         if not remap:
             st.kf_seq[tr.ref_kf] += 1  # the reference keyframe no longer the recorded one
         sys_._after_loop_correction()
         assert tr._pending == [] and tr._chain is None
+        assert tr._dropped == [("frame 8", 8, 8 / 30)]  # tracked again before the next frame
         if remap:
             np.testing.assert_allclose(tr.last.Tcw, T_last @ G, atol=1e-5)
             np.testing.assert_allclose(tr.velocity, T_last @ np.linalg.inv(T_prev), atol=1e-6)
@@ -395,6 +398,119 @@ def test_reanchoring_keeps_the_motion_model():
         else:
             np.testing.assert_array_equal(tr.last.Tcw, T_last)
             assert tr.velocity is None and tr._prev_Tcw is None
+
+
+def _straddled_correction(plant=None, between=False):
+    """The shipped mode at the test size, with an identity correction
+    through the loop closer's ``on_corrected`` callback landing between
+    frame AT's dispatch and its tail, two more frames in flight, or with
+    ``between`` after frame AT's call, before the next. ``plant`` wraps the
+    system before the run. Returns the system and what the tracker held at
+    the correction."""
+    from os1_tpu_torch.features.orb import OrbConfig
+    from os1_tpu_torch.geometry.camera import Camera
+    from os1_tpu_torch.io import synthetic
+    from os1_tpu_torch.pipeline import System
+
+    H, W = 240, 320
+    K = np.array([[260.0, 0, 160.0], [0, 260.0, 120.0], [0, 0, 1.0]])
+    poses = synthetic.loop_trajectory(160, radius=1.5, revolutions=1.15)[:STRADDLE_N]
+    frames = synthetic.render_sequence(synthetic.room_scene(seed=5), poses, K, H, W)
+    cfg = SlamConfig(camera=Camera.make(260.0, 260.0, 160.0, 120.0, width=W, height=H,
+                                        device="cpu"),
+                     orb=OrbConfig(height=H, width=W, n_features=512, n_levels=4),
+                     map=MapConfig(max_keyframes=64, max_points=8192, n_features=512))
+    sys_ = System(cfg, pipelined=True, coop_mapping=True, device="cpu")
+    tr = sys_.tracker
+    dispatch, seen = tr._dispatch_fused, {}
+
+    def straddled(frame, *a):
+        out = dispatch(frame, *a)
+        if tr.frame_id - 1 == STRADDLE_AT and not seen and not between:
+            seen.update(last=tr.last.frame_id, in_flight=[e[1] for e in tr._pending])
+            sys_.loop_closer.on_corrected()  # lands between this frame's dispatch and its tail
+        return out
+
+    tr._dispatch_fused = straddled
+    if plant is not None:
+        plant(sys_, seen)
+    for i, f in enumerate(frames):
+        sys_.track_monocular(f, timestamp=i / 30.0)
+        if between and i == STRADDLE_AT:
+            seen.update(last=tr.last.frame_id, in_flight=[e[1] for e in tr._pending])
+            sys_.loop_closer.on_corrected()  # as the LoopClosing thread lands it between frames
+    sys_.flush()
+    return sys_, seen
+
+
+STRADDLE_AT, STRADDLE_N = 28, 33
+
+
+def test_frames_dropped_by_a_correction_are_tracked():
+    """A correction that lands while a frame's dispatch straddles it, with
+    two more frames in flight (the threaded mode's LoopClosing thread can
+    land it at any point of a frame): the dropped frames are tracked again
+    from the remapped pose, each predicted one frame ahead of the frame
+    before it, so no frame id is missing and none is lost after it. The
+    JAX package's re-anchoring discards them: the next frame, four frames
+    past the last one applied, was predicted one frame ahead on a chain
+    whose velocity then spanned four frames, and on the room circuit the
+    second frame after it was lost (its motion search and the
+    reference-keyframe fallback both failed)."""
+    AT, N = STRADDLE_AT, STRADDLE_N
+    sys_, seen = _straddled_correction()
+    tr = sys_.tracker
+    assert seen == dict(last=AT - 3, in_flight=[AT - 2, AT - 1])
+    lost = [f for f, _ in tr.loss_log if f > seen["last"]]
+    assert not lost, tr.loss_log
+    fids = [f for _, f, _ in sys_.frame_trajectory()]
+    assert fids == sorted(fids) and set(range(seen["last"], N)) <= set(fids), fids
+
+
+def test_a_lost_replayed_frame_skips_no_later_frame(monkeypatch):
+    """A correction lands between two frames' calls, the map then tracks at
+    depth 1 (as a map under eight keyframes does), so the next call's replay
+    of the two dropped frames applies the first, and that frame is lost
+    (planted): the frame in flight on its chain is discarded, as after any
+    loss, and the frame in the call goes through the state machine as a new
+    frame would, so it is relocalized, not skipped, and each frame from
+    there on is tracked, lost or handed to the relocalizer."""
+    from os1_tpu_torch.pipeline import tracking
+
+    AT, N = STRADDLE_AT, STRADDLE_N
+    planted, relocalized = [], []
+
+    def plant(sys_, seen):
+        tr, corrected = sys_.tracker, sys_.loop_closer.on_corrected
+        apply, reloc = tr._apply_result, tr._relocalize
+
+        def corrected_then_shallow():
+            corrected()
+            monkeypatch.setattr(tracking, "PIPELINE_DEPTH", 1)
+
+        def apply_or_lose(frame, fid, timestamp, *rest):
+            if seen and fid == seen["in_flight"][0] and not planted:  # its replay
+                planted.append(fid)
+                with tr.lock:
+                    tr._mark_lost(frame, fid, timestamp, tr.last.Tcw, info="planted")
+                return None
+            return apply(frame, fid, timestamp, *rest)
+
+        def traced(frame, fid, timestamp):
+            relocalized.append(fid)
+            return reloc(frame, fid, timestamp)
+
+        tr._apply_result, tr._relocalize = apply_or_lose, traced
+        sys_.loop_closer.on_corrected = corrected_then_shallow
+
+    sys_, seen = _straddled_correction(plant, between=True)
+    tr = sys_.tracker
+    assert seen == dict(last=AT - 2, in_flight=[AT - 1, AT])
+    assert planted == [AT - 1] and (AT - 1, "planted") in tr.loss_log
+    after = [f for f in relocalized if f > AT - 1]
+    assert after and after[0] <= AT + 1, relocalized  # the call's frame at the latest
+    seen_by = {f for _, f, _ in sys_.frame_trajectory()} | set(after) | {f for f, _ in tr.loss_log}
+    assert set(range(after[0], N)) <= seen_by, (sorted(seen_by), relocalized, tr.loss_log)
 
 
 # ------------------------------------------------------- room circuit --

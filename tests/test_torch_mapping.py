@@ -27,6 +27,8 @@ iterations): poses within 1e-4 (measured 1.5e-5), points within 1e-3
 same points, observations, culls and spanning tree; poses within 1e-4
 (measured 1.2e-7), points within 1e-3 (measured 5.4e-6).
 
+The local mapper's ``ba_iters`` over the slice equals the JAX mapper's.
+
 The viewer's far-point trackbar: ``System.set_far_parallax_param`` sets the
 mapper's threshold as the JAX package's does, and the same pass with the
 threshold at 0.999 gives the same ``pt_far_class`` in both packages (exact),
@@ -125,6 +127,14 @@ def test_mapping_slice_matches_jax(runs):
     ate_j = synthetic.ate_rmse([T for *_, T in tj], [poses[f] for _, f, _ in tj])
     ate_t = synthetic.ate_rmse([T for *_, T in tt], [poses[f] for _, f, _ in tt])
     assert ate_t <= ate_j + 0.005 and ate_j < 0.2
+
+
+def test_ba_iters_matches_jax(runs):
+    """The local BA's LM iterations over the slice's keyframe passes (5 for
+    the first phase, 5 for each chunk that runs), as the JAX mapper counts
+    them for bench.py's local-BA iterations/s."""
+    j, t = runs["jsys"].mapper.ba_iters, runs["tsys"].mapper.ba_iters
+    assert t == j and j > 0 and j % 5 == 0
 
 
 # ---------------------------------------------------------------------- #

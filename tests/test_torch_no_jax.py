@@ -1,7 +1,8 @@
 """The port stands alone: ``os1_tpu_torch`` imports neither JAX nor the JAX
 package, at import time or while it runs frames in the shipped mode
 (pipelined, cooperative mapping, loop closing, the BoW database and the
-relocalizer) or trains a vocabulary and reads the photographs, its Osmap
+relocalizer), imports what ``System.warmup()`` imports and loads its
+libraries, runs the host helpers of ``native.py``, or trains a vocabulary and reads the photographs, its Osmap
 persistence needs neither protobuf, PyYAML nor
 OpenCV, its shell (``io/``, ``viz/``, ``run_slam.py``) imports OpenCV only
 inside functions, its distributed back end (``parallel/``) imports neither,
@@ -52,6 +53,7 @@ import os1_tpu_torch.vocab.native
 import os1_tpu_torch.vocab.tree
 import os1_tpu_torch.vocab.train
 import os1_tpu_torch.io.realimg
+import os1_tpu_torch.native
 from os1_tpu_torch.features.orb import OrbConfig
 from os1_tpu_torch.geometry.camera import Camera
 from os1_tpu_torch.io import synthetic
@@ -66,6 +68,11 @@ cfg = SlamConfig(camera=Camera.make(130.0, 130.0, 80.0, 60.0, width=W, height=H)
                  map=MapConfig(max_keyframes=8, max_points=512, n_features=256))
 s = System(cfg, enable_mapping=True, pipelined=True, coop_mapping=True, device="cpu")
 assert s.coop.loop_steps is not None
+# System.warmup()'s imports, made inside it, and its library loader.
+import os1_tpu_torch.ops.cuda_build
+import os1_tpu_torch.solvers.initializer
+assert os1_tpu_torch.ops.cuda_build.load_libraries(cuda=False)
+assert callable(s.warmup)
 states = [s.track_monocular(img)[0] for img in
           synthetic.render_sequence(synthetic.default_scene(seed=3), poses[:6], K, H, W)]
 for img in np.zeros((3, H, W), np.float32):  # black frames: lost, then relocalization
@@ -80,6 +87,12 @@ assert len(realimg.photo_room_scene()) == 4
 descs, docs = train.training_descriptors(n_images=2, n_features=64, device="cpu")
 assert train.build_vocabulary(descs, 3, 2, device="cpu").n_words > 0
 assert train.build_vocabulary_native(descs, 3, 2, doc_ids=docs).n_words > 0
+# The host helpers.
+from os1_tpu_torch import native
+assert native.rgb_to_gray(np.zeros((4, 5, 3), np.uint8)).shape == (4, 5)
+ring = native.NativeRingBuffer(2, (3,))
+assert ring.push(np.arange(3, dtype=np.uint8)) and ring.pop() is not None
+assert native.point_distinctive_desc(np.zeros((2, 4, 8), np.uint32), np.ones((2, 4), bool)).tolist() == [0, 0]
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib", "os1_tpu.")) or m == "os1_tpu")
 print("LEAKED", bad)
 """
