@@ -32,7 +32,8 @@ fails (non-zero exit, no final result line) if any phase fails:
      descent against the plain torch descent, exactly, on the descriptors of
      an orbit frame;
   8. coop, the shipped mode: System(cfg, pipelined=True, coop_mapping=True,
-     enable_loop_closing=False) over the 300-frame orbit, twice on fresh
+     enable_loop_closing=False) over the first 200 frames of the orbit
+     (N_FRAMES_COOP), twice on fresh
      systems (the second with synchronised stage timers for the stage table),
      gated on initialization by frame 10, OK on every frame from the first OK
      one, ATE <= 0.2, every keyframe materialized and the scheduler idle after
@@ -91,7 +92,8 @@ fails (non-zero exit, no final result line) if any phase fails:
      load of A: rolled back, the counts unchanged;
  14. threaded, run_slam's default mode (the reference's thread topology):
      System(cfg, pipelined=True, async_mapping=True), loop closing on, one
-     pass over the bench orbit (after [orbit-loop]; init by frame 10, OK on
+     pass over the first 150 frames of the bench orbit
+     (N_FRAMES_THREADED_ORBIT; after [orbit-loop]; init by frame 10, OK on
      85% of the frames from the first OK one, ATE <= 0.2) and one over the
      loop sequence (after [loop]; ATE <= 0.22, a loop closed, corrected on
      the LoopClosing thread, a global-BA thread spawned and joined, no frame
@@ -120,14 +122,21 @@ fails (non-zero exit, no final result line) if any phase fails:
      and K1's assignment against the plain one at the trainer's shapes
      ([20480, 10], [1000000, 10], [1000, 7]), exactly, timed; (c) whether its
      binary equals the committed os1_tpu/data/default_vocab.bin (reported,
-     not gated); (d) training_corpus(120) at 480x640 with 1024 features
-     through the host C++ trainer (k=10, L=5): images/s, training seconds,
-     nodes and words, the kernel launches, a bow.compute at that size;
- 17. cli: ``python3 -m os1_tpu_torch.run_slam --synthetic --frames 120
+     not gated); (d) the reference-scale trainer's sharded corpus cut to two
+     shards of 60 images at 480x640 (vocab/train.py's write_corpus_shard,
+     merged by load_corpus_shards) through the host C++ trainer with
+     vocab_1m's recipe (k=10, L=6, 6 iterations, seed 0): images/s,
+     training seconds, nodes, words and MB, P1 and P2 launched on every
+     image, a bow.compute at that size; (e) vocab/validate.py's health
+     numbers (coverage, distinct words, the self, adjacent and opposite L1
+     scores, the revisit query) of the shipped vocab_1m.bin and of (d)'s
+     tree over the photo room's 24 views, P1 and P2 on every view;
+ 17. cli: ``python3 -m os1_tpu_torch.run_slam --synthetic --frames 60
      --save-trajectory T --save-map M`` as a subprocess (the threaded
-     default): 120 frames, final state OK, 90% tracked, the ATE reported, the
-     files written; then ``--load-map M --localization --frames 30``: it
-     relocalizes and tracks, and the map's counts do not change; beside
+     default): 60 frames (CLI_FRAMES), final state OK, 90% tracked, the ATE
+     reported, the files written; then ``--load-map M --localization
+     --frames 20``: it relocalizes and tracks, and the map's counts do not
+     change; beside
      them ``--warmup``, which exits 0 with the four libraries built and
      ``System.warmup()`` run;
  18. warmup (run after [loop]): System.warmup() timed on a fresh shipped
@@ -137,7 +146,17 @@ fails (non-zero exit, no final result line) if any phase fails:
      0.22, a loop closed, launches of every kernel of the path); its first
      correction's loop.correct and loop.essential host ms beside [loop]'s
      first and second pass, and whether the first-correction gap closed
-     (reported, not gated).
+     (reported, not gated);
+ 19. accuracy (run after [warmup], so that [loop]'s first pass still pays
+     the process's first correction): the accuracy rig
+     (os1_tpu_torch/accuracy.py) in the coop mode over the 300-frame bench
+     orbit, warmup() first, through io/sequences.py's build_system, gated as
+     bench.py gates the orbit (ATE <= 0.2, OK on every frame from the first
+     OK one) and on launches of every kernel of the path; its configuration
+     must equal [orbit-loop]'s, and then its trajectory must equal that fresh
+     pass's bit for bit. Beside it, ``python3 -m os1_tpu_torch.accuracy
+     --seq orbit --frames 40 --runs 2`` as a process (the sync mode) must
+     exit 0 with one distinct trajectory.
 
 Every mapped path prints its local BA's LM iterations and bench.py's
 local-BA iterations/s.
@@ -149,9 +168,10 @@ requires. The table kernel (hamming_matrix_cuda) is launched on no path once
 every matcher is fused; it stays checked in [hamming] and listed with 0
 launches. [match] also checks loop closing's two forms (the bound-feature
 match and the guided projection). The kernels line gives, as ``launches``, the launches of this slice's
-paths, [photo] and [vocab] (the trainer's assignments are K1's fused match;
-the corpus runs P1 and P2), and by path (``launches_by_path``) those and the
-[threaded] loop pass's (run_slam's default mode); each wrapper counts its
+paths, [accuracy] and [vocab] (the trainer's assignments are K1's fused match;
+the corpus shards and the validation views run P1 and P2), and by path
+(``launches_by_path``) those, [photo]'s and the [threaded] loop pass's
+(run_slam's default mode); each wrapper counts its
 launches by thread too, and all threads launch on the device's default
 stream. The sequences are rendered in worker processes while the kernel
 phases run (``Renderer``).
@@ -201,19 +221,30 @@ OSMAP_B_SPANS = ((180, 300), (180, 260), (180, 230))  # session B, shortened if 
 GATE_RESUME_OK_AFTER = 0.9  # OK share of the replayed frames after the first OK one
 GATE_MERGE_ATE = 0.05  # of the path length (tests/test_merge.py:56-64)
 GATE_OK_THREADED = 0.85  # the threaded mode's bound (tests/test_async_pipeline.py:157)
-CLI_FRAMES, CLI_LOC_FRAMES = 120, 30  # [cli]: the synthetic run, the localization run
+# [cli]: the synthetic run, the localization run (cut from 120 and 30 to keep
+# the script inside its limit on a slow host).
+CLI_FRAMES, CLI_LOC_FRAMES = 60, 20
 GATE_CLI_TRACKED = 0.9
 # [photo]: bench.py's photo-room gates (bench.py:148-155).
 N_FRAMES_PHOTO = 300
 GATE_ATE_PHOTO = 0.25
 GATE_OK_PHOTO = 0.70
 GATE_MIN_LOOPS_PHOTO = 1
-# [vocab]: the default vocabulary's training (vocab/dbow2.py), the corpus of
-# the reference-scale trainer cut to VOCAB_CORPUS_IMAGES images, and K1's
-# assignment checked at the trainer's shapes (descriptors, centres).
+# [vocab]: the default vocabulary's training (vocab/dbow2.py), the sharded
+# corpus of the reference-scale trainer cut to VOCAB_SHARDS shards of
+# VOCAB_SHARD_IMAGES images, trained with vocab_1m's recipe
+# (scripts/train_vocab_1m.py:44-47), and K1's assignment checked at the
+# trainer's shapes (descriptors, centres).
 VOCAB_DEFAULT = dict(branching=10, depth=4)
-VOCAB_CORPUS_IMAGES, VOCAB_CORPUS_FEATURES = 120, 1024
-VOCAB_NATIVE = dict(branching=10, depth=5)
+VOCAB_SHARDS, VOCAB_SHARD_IMAGES = 2, 60
+VOCAB_1M = dict(branching=10, depth=6, iters=6, seed=0)
+VOCAB_VIEWS = 24  # scripts/validate_vocab_real.py's photo-room views
+# [accuracy]: the rig's command line beside the in-process pass.
+ACCURACY_CLI = ("--seq", "orbit", "--frames", "40", "--runs", "2")
+# Depth cuts that keep the script inside its limit: [coop]'s two passes and
+# the threaded orbit over the first frames of the bench orbit.
+N_FRAMES_COOP = 200
+N_FRAMES_THREADED_ORBIT = 150
 ASSIGN_SHAPES = ((20480, 10), (1_000_000, 10), (1000, 7))
 MESH_SHARDS = 8  # the reference's 8-device mesh (tests/conftest.py), as shards on one card
 MESH_TWO_LEVEL = 2  # two_level_backend's hosts in [mesh]
@@ -2128,9 +2159,14 @@ def phase_vocab(device="cuda"):
     CPU (the plain assignment): identical in every array; K1's assignment at
     the trainer's shapes against the plain one; (c) whether the result's
     binary equals the committed os1_tpu/data/default_vocab.bin (reported);
-    (d) a training_corpus of 120 images at 480x640 through the host C++
-    trainer (k=10, L=5): images/s, training seconds, nodes and words, the
-    kernel launches, and bow.compute at that size."""
+    (d) the reference-scale trainer's sharded path cut to two shards of 60
+    images at 480x640 (write_corpus_shard, merged by load_corpus_shards)
+    through the host C++ trainer with vocab_1m's recipe (k=10, L=6, 6
+    iterations, seed 0): images/s, training seconds, nodes and words, MB,
+    the kernel launches (P1 and P2 on every image), and bow.compute at that
+    size; (e) vocab/validate.py's health numbers of the shipped vocab_1m.bin
+    and of (d)'s tree over the photo room's 24 views (P1 and P2 on every
+    view)."""
     from os1_tpu_torch.vocab import dbow2, train
     from os1_tpu_torch.vocab.database import KeyFrameDatabase
 
@@ -2194,19 +2230,25 @@ def phase_vocab(device="cuda"):
             f"on another device; reported, not gated): identical {mine == ref}; {len(mine)} "
             f"against {len(ref)} bytes; {share:.4f} of the 45-byte records equal")
 
+        # (d) the sharded corpus, merged, through the host trainer.
+        shard_dir = os.path.join(tmp, "shards")
         _reset_counts(counters)
         t0 = time.perf_counter()
-        cdescs, cdocs = train.training_corpus(VOCAB_CORPUS_IMAGES, VOCAB_CORPUS_FEATURES,
-                                              device=device)
+        paths = [train.write_corpus_shard(i, VOCAB_SHARDS, VOCAB_SHARD_IMAGES, shard_dir,
+                                          device=device) for i in range(VOCAB_SHARDS)]
         t_corpus = time.perf_counter() - t0
         launches_d = {k: c.launches for k, c in counters.items()}
+        cdescs, cdocs, n_docs = train.load_corpus_shards(paths)
+        images = VOCAB_SHARDS * VOCAB_SHARD_IMAGES
         t0 = time.perf_counter()
-        big = train.build_vocabulary_native(cdescs, n_docs=int(cdocs.max()) + 1, doc_ids=cdocs,
-                                            **VOCAB_NATIVE)
+        big = train.build_vocabulary_native(cdescs, n_docs=n_docs, doc_ids=cdocs, **VOCAB_1M)
         t_train = time.perf_counter() - t0
         bpath = os.path.join(tmp, "corpus_vocab.bin")
         dbow2.save_binary(big, bpath)
-        db = KeyFrameDatabase(dbow2.load_binary(bpath), MAP_KEYFRAMES)
+        t0 = time.perf_counter()
+        reloaded = dbow2.load_binary(bpath)
+        t_reload = time.perf_counter() - t0
+        db = KeyFrameDatabase(reloaded, MAP_KEYFRAMES)
         sample = cdescs[np.random.default_rng(0).choice(len(cdescs), N_FEATURES, replace=False)]
         valid = np.ones(len(sample), bool)
         db.compute_bow(sample, valid)
@@ -2215,35 +2257,158 @@ def phase_vocab(device="cuda"):
             t0 = time.perf_counter()
             db.compute_bow(sample, valid)
             ts.append(time.perf_counter() - t0)
-        out["corpus"] = dict(images=VOCAB_CORPUS_IMAGES, descriptors=len(cdescs),
-                             corpus_s=t_corpus, images_per_s=VOCAB_CORPUS_IMAGES / t_corpus,
-                             train_s=t_train, nodes=len(big.node_desc), words=big.n_words,
+        out["corpus"] = dict(shards=VOCAB_SHARDS, images=images, documents=n_docs,
+                             descriptors=len(cdescs), corpus_s=t_corpus,
+                             images_per_s=images / t_corpus, train_s=t_train,
+                             nodes=len(big.node_desc), words=big.n_words, depth=big.depth,
                              launches=launches_d, compute_bow_ms=float(np.median(ts) * 1e3),
-                             bytes=os.path.getsize(bpath))
-        log(f"[vocab] training_corpus({VOCAB_CORPUS_IMAGES}) at 480x640, "
-            f"{VOCAB_CORPUS_FEATURES} features: {len(cdescs)} descriptors in {t_corpus:.3f}s "
+                             bytes=os.path.getsize(bpath), reload_s=t_reload)
+        log(f"[vocab] (d) {VOCAB_SHARDS} corpus shards of {VOCAB_SHARD_IMAGES} images at 480x640 "
+            f"(write_corpus_shard, seeds 1000 + 77 i), merged by load_corpus_shards: "
+            f"{len(cdescs)} descriptors / {n_docs} documents in {t_corpus:.3f}s "
             f"({out['corpus']['images_per_s']:.3f} images/s, rendering included) with launches "
-            f"{launches_d}; build_vocabulary_native(k=10, L=5) {t_train:.3f}s: "
-            f"{len(big.node_desc)} nodes, {big.n_words} words; bow.compute of {N_FEATURES} "
-            f"descriptors {out['corpus']['compute_bow_ms']:.3f} ms (median of 21)")
+            f"{launches_d}; build_vocabulary_native({VOCAB_1M}) {t_train:.3f}s: "
+            f"{len(big.node_desc)} nodes, {big.n_words} words, "
+            f"{out['corpus']['bytes'] / 1e6:.3f} MB, reloaded in {t_reload:.3f}s; bow.compute of "
+            f"{N_FEATURES} descriptors {out['corpus']['compute_bow_ms']:.3f} ms (median of 21)")
         for k in ("extract_patches_cuda", "sample_patches_cuda"):
-            if device == "cuda" and (launches_d[k] < VOCAB_CORPUS_IMAGES or launches_a[k] <= 0):
+            if device == "cuda" and (launches_d[k] < images or launches_a[k] <= 0):
                 raise RuntimeError(f"vocab: {k} not launched on every corpus image")
+        if big.depth != VOCAB_1M["depth"] or big.n_words <= 1:
+            raise RuntimeError(f"vocab: the sharded tree is not an L={VOCAB_1M['depth']} tree")
+
+        # (e) vocabulary health on the photo room: the shipped vocab_1m.bin
+        # and (d)'s tree over the same views.
+        from os1_tpu_torch.vocab import validate
+
+        views = validate.render_views(VOCAB_VIEWS)
+        _reset_counts(counters)
+        out["validate"] = {}
+        for name, v in (("vocab_1m", os.path.join(dbow2.DATA_DIR, "vocab_1m.bin")),
+                        ("sharded", big)):
+            r = validate.validate(v, device=device, views=views)
+            out["validate"][name] = r
+            log(f"[vocab] (e) validate({name}): {r['vocab_words']} words; {r['descriptors']} "
+                f"descriptors, {r['distinct_words']} distinct words ({r['words_per_desc']:.3f} "
+                f"words/desc), coverage {r['coverage']:.4f}; L1 self {r['self']:.4f}, adjacent "
+                f"{r['adjacent']:.4f}, opposite {r['opposite']:.4f} (ratio "
+                f"{r['near_far_ratio']:.2f}); revisit top {r['revisit_top']} (expect near "
+                f"{r['revisit_expect']}); {'VOCAB OK' if r['ok'] else 'VOCAB WEAK'}; "
+                f"{r['views_s']:.3f}s for the views")
+            if not (r["views"] == VOCAB_VIEWS and r["descriptors"] > 0 and r["self"] > 0.99):
+                raise RuntimeError(f"vocab: validate({name}) returned {r}")
+        launches_e = {k: c.launches for k, c in counters.items()}
+        out["validate"]["launches"] = launches_e
+        for k in ("extract_patches_cuda", "sample_patches_cuda"):
+            if device == "cuda" and launches_e[k] < 2 * VOCAB_VIEWS:
+                raise RuntimeError(f"vocab: {k} not launched on every validation view")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    out["launches"] = {k: launches_a[k] + launches_b[k] + launches_d[k] for k in counters}
+    out["launches"] = {k: launches_a[k] + launches_b[k] + launches_d[k] + launches_e[k]
+                       for k in counters}
     return out
 
 
-def _run_cli(args, timeout=600):
-    """One ``python3 -m os1_tpu_torch.run_slam`` process from this checkout:
-    (exit code, seconds, stdout, stderr)."""
+def _config_key(sys_):
+    """What makes two systems run the same: every configuration field (the
+    camera's values), the mode flags, the mesh and the vocabulary's size."""
+    import dataclasses
+
+    cfg = sys_.cfg
+    cam = tuple(np.asarray(f.cpu()).tolist() for f in cfg.camera)
+    fields = tuple((f.name, getattr(cfg, f.name)) for f in dataclasses.fields(cfg)
+                   if f.name != "camera")
+    modes = tuple(getattr(sys_, k) for k in ("enable_mapping", "enable_loop_closing", "pipelined",
+                                            "async_mapping", "coop_mapping"))
+    return cam, repr(fields), modes, sys_.mesh_backend is None, sys_.vocab.n_words
+
+
+def _run_module(module, args, timeout=600):
+    """One ``python3 -m MODULE ARGS`` process from this checkout: (exit code,
+    seconds, stdout, stderr)."""
     here = os.path.dirname(os.path.abspath(__file__))
     env = dict(os.environ, PYTHONPATH=here + os.pathsep + os.environ.get("PYTHONPATH", ""))
     t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", "os1_tpu_torch.run_slam", *args], cwd=here,
-                          env=env, capture_output=True, text=True, timeout=timeout)
+    proc = subprocess.run([sys.executable, "-m", module, *args], cwd=here, env=env,
+                          capture_output=True, text=True, timeout=timeout)
     return proc.returncode, time.perf_counter() - t0, proc.stdout, proc.stderr
+
+
+def phase_accuracy(frames, poses, ref_traj, ref_key, device="cuda"):
+    """The accuracy rig (os1_tpu_torch/accuracy.py) on the card: run_once in
+    the coop mode (bench.py's configuration through io/sequences.py's
+    build_system, warmup() first) over the bench orbit, gated as bench.py
+    gates the orbit (ATE <= 0.2, OK on every frame from the first OK one)
+    and on launches of every kernel of the path; its configuration must
+    equal ``ref_key`` ([orbit-loop]'s system) and then its trajectory must
+    equal ``ref_traj`` ([orbit-loop]'s fresh pass over the same frames) bit
+    for bit. Beside it, ``python3 -m os1_tpu_torch.accuracy`` (ACCURACY_CLI,
+    the sync mode) as a process: exit 0 with one distinct trajectory."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from os1_tpu_torch import accuracy
+    from os1_tpu_torch.io import sequences
+
+    side = ThreadPoolExecutor(1)
+    cli = side.submit(_run_module, "os1_tpu_torch.accuracy", list(ACCURACY_CLI))
+    try:
+        built = []
+
+        def build(**kw):
+            built.append(sequences.build_system(**kw))
+            return built[-1]
+
+        counters = _counters()
+        _reset_counts(counters)
+        t0 = time.perf_counter()
+        res = accuracy.run_once(frames, poses, sync=False, th_overrides={}, device=device,
+                                build=build)
+        res["seconds"] = time.perf_counter() - t0
+        res["launches"] = {k: c.launches for k, c in counters.items()}
+        (sys_,) = built
+        same_config = _config_key(sys_) == ref_key
+        traj = np.stack([T for _, _, T in sys_.frame_trajectory()])
+        same_traj = bool(same_config and traj.shape == ref_traj.shape
+                         and np.array_equal(traj, ref_traj))
+        first = res["n_lost"] if res["lost"] == list(range(res["n_lost"])) else None
+        res.update(frames=len(frames), same_config=same_config, equals_fresh_pass=same_traj,
+                   init_frame=first)
+        log(f"[accuracy] run_once(coop) over the {len(frames)}-frame orbit in "
+            f"{res['seconds']:.3f}s (warmup() included): ATE {res['ate']:.6f} (gate <= "
+            f"{GATE_ATE}); tracked {res['n_tracked']}, lost {res['lost']}; {res['n_keyframes']} "
+            f"keyframes, {res['n_points']} points, {res['n_loops']} loops; sha "
+            f"{res['traj_sha']}; configuration equal to [orbit-loop]'s {same_config}; "
+            f"trajectory equal to [orbit-loop]'s fresh pass bit for bit {same_traj}; launches "
+            f"{res['launches']}")
+        fails = []
+        if first is None or first > GATE_INIT_BY:
+            fails.append(f"not OK on every frame from the first OK one (lost {res['lost']})")
+        if not res["ate"] <= GATE_ATE:
+            fails.append(f"ATE {res['ate']} > {GATE_ATE}")
+        if not same_config:
+            fails.append("its configuration differs from [orbit-loop]'s")
+        elif not same_traj:
+            fails.append("its trajectory differs from [orbit-loop]'s fresh pass")
+        _launch_gate(res, fails)
+
+        rc, secs, out, err = cli.result()
+        lines = out.strip().splitlines()
+        runs = [ln for ln in lines if ln.startswith("run ")]
+        res["cli"] = dict(args=list(ACCURACY_CLI), exit=rc, seconds=secs, lines=lines)
+        log(f"[accuracy] python3 -m os1_tpu_torch.accuracy {' '.join(ACCURACY_CLI)}: exit {rc} "
+            f"in {secs:.1f}s:\n  " + "\n  ".join(lines))
+        if rc != 0 or len(runs) != 2 or "sync: 1 distinct trajectories over 2 runs" not in out:
+            fails.append(f"the accuracy command: exit {rc}, {lines} {err[-1500:]}")
+        if fails:
+            raise RuntimeError("accuracy failed: " + "; ".join(fails))
+        return res
+    finally:
+        side.shutdown(wait=True)
+
+
+def _run_cli(args, timeout=600):
+    """One ``python3 -m os1_tpu_torch.run_slam`` process from this checkout."""
+    return _run_module("os1_tpu_torch.run_slam", args, timeout)
 
 
 def _summary(stdout):
@@ -2319,14 +2484,12 @@ RENDER_WORKERS = 6  # processes rendering the sequences beside the card's phases
 
 
 def _scene_and_poses(kind, n_frames):
-    """bench.py's three sequences: the orbit (default_scene(seed=1)), the loop
-    circuit in the room (room_scene(seed=3)) and in the photo room."""
-    from os1_tpu_torch.io import realimg, synthetic
+    """bench.py's three sequences (io/sequences.py): the orbit
+    (default_scene(seed=1)), the loop circuit in the room (room_scene(seed=3))
+    and in the photo room."""
+    from os1_tpu_torch.io import sequences
 
-    if kind == "orbit":
-        return synthetic.default_scene(seed=1), synthetic.orbit_trajectory(n_frames, advance=0.05)
-    scene = synthetic.room_scene(seed=3) if kind == "loop" else realimg.photo_room_scene()
-    return scene, synthetic.loop_trajectory(n_frames)
+    return sequences.scene_and_poses(kind, n_frames)
 
 
 def _render_chunk(kind, n_frames, lo, hi, K, h, w):
@@ -2431,15 +2594,22 @@ def main() -> int:
         photo_frames, photo_poses = renders.get("photo", N_FRAMES_PHOTO)
     out["mapping"], _ = phase_mapping(frames, poses)
     out["bow"] = phase_bow(frames)
-    out["coop"], sys2 = phase_coop(frames, poses)
-    out["reloc"] = phase_reloc(sys2, frames)
+    out["coop"], sys2 = phase_coop(frames[:N_FRAMES_COOP], poses[:N_FRAMES_COOP])
+    out["reloc"] = phase_reloc(sys2, frames[:N_FRAMES_COOP])
     del sys2
     out["orbit_loop"], sys_o = phase_orbit_loop(frames, poses)
-    out["threaded_orbit"] = phase_threaded("orbit", frames, poses, out["orbit_loop"])
+    orbit = (frames, poses, np.stack([T for _, _, T in sys_o.frame_trajectory()]),
+             _config_key(sys_o))
+    out["threaded_orbit"] = phase_threaded("orbit", frames[:N_FRAMES_THREADED_ORBIT],
+                                           poses[:N_FRAMES_THREADED_ORBIT], out["orbit_loop"])
 
     frames, poses = loop_frames, loop_poses
     out["loop"], sys_a = phase_loop(frames, poses)
     out["warmup"] = phase_warmup(frames, poses, out["loop"])
+    # After [loop]: the rig's warmup() pays the first-use costs that [loop]'s
+    # first correction measures (compared in [warmup]).
+    out["accuracy"] = phase_accuracy(*orbit)
+    del orbit
     out["threaded_loop"] = phase_threaded("loop", frames, poses, out["loop"]["first"])
     out["osmap"] = phase_osmap(sys_a, sys_o, frames, poses)
     out["mesh"] = phase_mesh(frames, poses, sys_a, out["loop"])
@@ -2455,9 +2625,12 @@ def main() -> int:
         with open(args.json, "w") as f:
             json.dump(out, f, indent=1)
 
-    # This slice's paths are the photo room and vocabulary training; the
-    # threaded loop pass (run_slam's default mode) is listed beside them.
-    by_path = dict(photo=out["photo"]["launches"], vocab=out["vocab"]["launches"],
+    # This slice's paths are the accuracy rig and the vocabulary tools (the
+    # corpus shards, the trainer's assignments, the photo-room check); the
+    # photo room and the threaded loop pass (run_slam's default mode) are
+    # listed beside them.
+    by_path = dict(accuracy=out["accuracy"]["launches"], vocab=out["vocab"]["launches"],
+                   photo=out["photo"]["launches"],
                    threaded_loop=out["threaded_loop"]["launches"])
     big = next(r for r in out["hamming"] if r["shape"] == [4096, 1024])
     fused = next(r for r in out["match"] if r["batch"] == 1 and r["shape"] == [4096, 1024])
@@ -2466,7 +2639,7 @@ def main() -> int:
 
     def entry(name, source, replaces, row, rows):
         return dict(name=name, route="cuda", source=source, replaces=replaces,
-                    launches=by_path["photo"][name] + by_path["vocab"][name],
+                    launches=by_path["accuracy"][name] + by_path["vocab"][name],
                     launches_by_path={k: v[name] for k, v in by_path.items()},
                     max_abs_err=max(r["max_abs_err"] for r in rows),
                     ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],

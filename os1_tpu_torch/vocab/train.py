@@ -24,15 +24,32 @@ vocabulary's) and :func:`training_corpus` (textures and rendered scene
 views at 480x640) run the port's extractor (P1 and P2 on the card) over the
 port's renderer.
 
-    python -m os1_tpu_torch.vocab.train [--images N] [--features F]
-        [--branching k] [--depth L] [--native] [--device cpu] --out PATH
+The reference-scale corpus is built in shards (the counterpart of
+``scripts/gen_vocab_corpus.py``): :func:`write_corpus_shard` writes shard
+``i`` as ``training_corpus(images, 1024, seed=1000 + 77 * i)`` into an
+``.npz`` file, and :func:`load_corpus_shards` merges shards with the
+document offsets of ``scripts/train_vocab_1m.py``.
 
-renders and extracts a corpus, trains, writes the DBoW2 binary and prints
-the tree's statistics and the time of each stage.
+    python -m os1_tpu_torch.vocab.train [--images N] [--features F]
+        [--branching k] [--depth L] [--seed S] [--iters I] [--native]
+        [--device cpu] [--out PATH]
+    python -m os1_tpu_torch.vocab.train --shard I --n-shards N [--images M]
+        [--shard-dir D] [--device cpu]
+    python -m os1_tpu_torch.vocab.train --from-shards D [--depth L] [--seed S]
+        [--iters I] [--native] [--out PATH]
+
+The first renders and extracts a corpus, trains, writes the DBoW2 binary
+(by default under ``_build/``) and prints the tree's statistics and the time
+of each stage; the second writes one corpus shard; the third trains from
+every shard in ``D``. ``vocab_1m``'s recipe is ``--from-shards D --native
+--depth 6 --iters 6 --seed 0``, ``scripts/train_vocab.py``'s 100k one
+``--images 1200 --depth 5 --native``.
 """
 from __future__ import annotations
 
 import argparse
+import glob
+import os
 import time
 
 import numpy as np
@@ -278,52 +295,162 @@ def training_corpus(n_images: int = 800, n_features: int = 1024, seed: int = 11,
     return _extract_all(cfg, _corpus_images(n_images, seed), device)
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description="Train a DBoW2 vocabulary with the port: render "
-                                 "and extract the corpus, train, write the binary.")
-    ap.add_argument("--images", type=int, default=120)
-    ap.add_argument("--features", type=int, default=1024)
-    ap.add_argument("--branching", type=int, default=10)
-    ap.add_argument("--depth", type=int, default=5)
-    ap.add_argument("--native", action="store_true",
-                    help="train with the host C++ trainer (the corpus still runs on --device)")
-    ap.add_argument("--device", default=None, help="cuda (default) or cpu")
-    ap.add_argument("--out", required=True)
-    args = ap.parse_args(argv)
 
+
+def shard_path(shard: int, images: int, out_dir: str | None = None) -> str:
+    """Where :func:`write_corpus_shard` writes shard ``shard`` of ``images``
+    images (by default ``_build/vocab_shards/``)."""
+    from ..ops.cuda_build import BUILD_DIR
+
+    out_dir = out_dir if out_dir is not None else os.path.join(BUILD_DIR, "vocab_shards")
+    return os.path.join(out_dir, f"os1_vocab_shard_{shard}_{images}.npz")
+
+
+def save_shard(path: str, descs: np.ndarray, docs: np.ndarray) -> None:
+    """Write a corpus shard (``descs`` [M, 8] uint32, ``docs`` [M]) as the
+    compressed ``.npz`` of the JAX package's shard script, atomically."""
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    tmp = f"{path}.tmp{os.getpid()}.npz"
+    np.savez_compressed(tmp, descs=descs, docs=docs)
+    os.replace(tmp, path)
+
+
+def write_corpus_shard(shard: int, n_shards: int, images: int = 1500, out_dir: str | None = None,
+                       device=None) -> str:
+    """Shard ``shard`` of ``n_shards`` of the reference-scale corpus:
+    ``training_corpus(images, 1024, seed=1000 + 77 * shard)`` on ``device``
+    (None: the card), written by :func:`save_shard` to :func:`shard_path`.
+    An existing shard is left as it is. Returns its path."""
+    if not 0 <= shard < n_shards:
+        raise ValueError(f"shard {shard} outside 0..{n_shards - 1}")
+    path = shard_path(shard, images, out_dir)
+    if not os.path.exists(path):
+        descs, docs = training_corpus(n_images=images, n_features=1024, seed=1000 + 77 * shard,
+                                      device=device)
+        save_shard(path, descs, docs)
+    return path
+
+
+def load_corpus_shards(paths):
+    """Merge corpus shards in sorted path order: each shard's document ids
+    shifted past the previous shard's largest (``scripts/train_vocab_1m.py``:
+    ``doc_off = docs[-1].max() + 1``). Returns (descs [M, 8] uint32, docs
+    [M], the number of documents)."""
+    descs, docs = [], []
+    doc_off = 0
+    for p in sorted(paths):
+        with np.load(p) as z:
+            descs.append(z["descs"])
+            docs.append(z["docs"] + doc_off)
+        doc_off = int(docs[-1].max()) + 1
+    return np.concatenate(descs), np.concatenate(docs), doc_off
+
+
+def _train_and_report(descs, docs, n_docs, args, device) -> None:
+    """Train on the corpus, write the binary, reload it and time
+    ``bow.compute`` (the statistics of ``scripts/train_vocab_1m.py``)."""
+    from ..ops.cuda_build import BUILD_DIR
     from . import dbow2
     from .database import KeyFrameDatabase
 
-    device = torch.device(args.device) if args.device else default_device()
+    out = args.out or os.path.join(BUILD_DIR, f"vocab_k{args.branching}_L{args.depth}.bin")
     t0 = time.perf_counter()
-    descs, docs = training_corpus(args.images, args.features, device=device)
-    t_corpus = time.perf_counter() - t0
-    print(f"corpus: {len(descs)} descriptors from {args.images} images on {device} in "
-          f"{t_corpus:.3f}s ({args.images / t_corpus:.2f} images/s)")
-    t0 = time.perf_counter()
-    kw = dict(branching=args.branching, depth=args.depth,
-              n_docs=int(docs.max()) + 1, doc_ids=docs)
-    vocab = (build_vocabulary_native(descs, **kw) if args.native
+    kw = dict(branching=args.branching, depth=args.depth, seed=args.seed, n_docs=n_docs,
+              doc_ids=docs)
+    vocab = (build_vocabulary_native(descs, iters=args.iters, **kw) if args.native
              else build_vocabulary(descs, device=device, **kw))
     t_train = time.perf_counter() - t0
     print(f"trained ({'host C++' if args.native else device}): {len(vocab.node_desc)} nodes, "
-          f"{vocab.n_words} words, k={vocab.branching} L={vocab.depth} in {t_train:.3f}s")
+          f"{vocab.n_words} words (k={vocab.branching}, L={vocab.depth}) in {t_train:.3f}s",
+          flush=True)
+    os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
     t0 = time.perf_counter()
-    dbow2.save_binary(vocab, args.out)
-    t_save = time.perf_counter() - t0
+    dbow2.save_binary(vocab, out)
+    print(f"saved {out} ({os.path.getsize(out) / 1e6:.3f} MB, {time.perf_counter() - t0:.3f}s)",
+          flush=True)
     t0 = time.perf_counter()
-    db = KeyFrameDatabase(dbow2.load_binary(args.out), 128)
-    t_load = time.perf_counter() - t0
-    sample = descs[np.random.default_rng(0).choice(len(descs), min(1024, len(descs)),
-                                                   replace=False)]
-    valid = np.ones(len(sample), bool)
-    db.compute_bow(sample, valid)
+    v2 = dbow2.load_binary(out)
+    print(f"reload: {time.perf_counter() - t0:.3f}s, {v2.n_words} words", flush=True)
+    db = KeyFrameDatabase(v2, 128)
+    n = min(1024, len(descs))
+    desc = descs[np.random.default_rng(0).choice(len(descs), n, replace=False)]
+    valid = np.ones(n, bool)
+    db.compute_bow(desc, valid)
     t0 = time.perf_counter()
     for _ in range(20):
-        _, _, bow = db.compute_bow(sample, valid)
-    t_bow = (time.perf_counter() - t0) / 20
-    print(f"saved {args.out} in {t_save:.3f}s, reloaded in {t_load:.3f}s; bow.compute of "
-          f"{len(sample)} descriptors {t_bow * 1e3:.3f} ms, {len(bow.words)} distinct words")
+        _, _, bow = db.compute_bow(desc, valid)
+    print(f"bow.compute @ {v2.n_words} words: {(time.perf_counter() - t0) / 20 * 1e3:.3f} ms/KF, "
+          f"{len(bow.words)} distinct words/KF", flush=True)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description="Train a DBoW2 vocabulary with the port: render "
+                                 "and extract the corpus (or one shard of it), train, write the "
+                                 "binary.")
+    ap.add_argument("--images", type=int, default=None,
+                    help="corpus images (default 120; a shard's default 1500)")
+    ap.add_argument("--features", type=int, default=1024)
+    ap.add_argument("--branching", type=int, default=10)
+    ap.add_argument("--depth", type=int, default=5)
+    ap.add_argument("--seed", type=int, default=0, help="the trainer's seed")
+    ap.add_argument("--iters", type=int, default=None,
+                    help="k-medians iterations a node (the host C++ trainer; default 8)")
+    ap.add_argument("--native", action="store_true",
+                    help="train with the host C++ trainer (the corpus still runs on --device)")
+    ap.add_argument("--device", default=None, help="cuda (default) or cpu")
+    ap.add_argument("--out", default=None,
+                    help="the DBoW2 binary (default os1_tpu_torch/_build/vocab_k{k}_L{L}.bin)")
+    ap.add_argument("--shard", type=int, default=None, help="write this corpus shard and stop")
+    ap.add_argument("--n-shards", type=int, default=None)
+    ap.add_argument("--shard-dir", default=None,
+                    help="where shards are written (default os1_tpu_torch/_build/vocab_shards)")
+    ap.add_argument("--from-shards", metavar="DIR", default=None,
+                    help="train from every shard in DIR")
+    args = ap.parse_args(argv)
+    if args.iters is not None and not args.native:
+        ap.error("--iters needs --native (the Python trainer runs 8 iterations)")
+    args.iters = 8 if args.iters is None else args.iters
+    device = torch.device(args.device) if args.device else None
+
+    if args.shard is not None:
+        if args.n_shards is None:
+            ap.error("--shard needs --n-shards")
+        images = args.images or 1500
+        path = shard_path(args.shard, images, args.shard_dir)
+        if os.path.exists(path):
+            print(f"{path} exists")
+            return 0
+        from ..ops.patches import extract_patches_cuda, sample_patches_cuda
+
+        t0 = time.perf_counter()
+        write_corpus_shard(args.shard, args.n_shards, images, args.shard_dir, device=device)
+        secs = time.perf_counter() - t0
+        with np.load(path) as z:
+            n = len(z["descs"])
+        print(f"shard {args.shard}/{args.n_shards}: {n} descs from {images} images in "
+              f"{secs:.3f}s ({images / secs:.3f} images/s; launches P1 "
+              f"{extract_patches_cuda.launches}, P2 {sample_patches_cuda.launches}) -> {path}",
+              flush=True)
+        return 0
+
+    if args.from_shards is not None:
+        paths = sorted(glob.glob(os.path.join(args.from_shards, "os1_vocab_shard_*.npz")))
+        if not paths:
+            ap.error(f"no os1_vocab_shard_*.npz in {args.from_shards}")
+        t0 = time.perf_counter()
+        descs, docs, n_docs = load_corpus_shards(paths)
+        print(f"corpus: {len(descs)} descriptors / {n_docs} images from {len(paths)} shards "
+              f"(loaded in {time.perf_counter() - t0:.3f}s)", flush=True)
+    else:
+        images = args.images or 120
+        device = device if device is not None else default_device()
+        t0 = time.perf_counter()
+        descs, docs = training_corpus(images, args.features, device=device)
+        t_corpus = time.perf_counter() - t0
+        n_docs = int(docs.max()) + 1
+        print(f"corpus: {len(descs)} descriptors / {images} images on {device} in "
+              f"{t_corpus:.3f}s ({images / t_corpus:.3f} images/s)", flush=True)
+    _train_and_report(descs, docs, n_docs, args, device)
     return 0
 
 

@@ -2,7 +2,9 @@
 package, at import time or while it runs frames in the shipped mode
 (pipelined, cooperative mapping, loop closing, the BoW database and the
 relocalizer), imports what ``System.warmup()`` imports and loads its
-libraries, runs the host helpers of ``native.py``, or trains a vocabulary and reads the photographs, its Osmap
+libraries, runs the host helpers of ``native.py``, or trains a vocabulary and reads the photographs,
+or runs its tools (the bench configuration and sequences of ``io/sequences.py``,
+the accuracy rig, the corpus shards, the vocabulary check), its Osmap
 persistence needs neither protobuf, PyYAML nor
 OpenCV, its shell (``io/``, ``viz/``, ``run_slam.py``) imports OpenCV only
 inside functions, its distributed back end (``parallel/``) imports neither,
@@ -54,6 +56,9 @@ import os1_tpu_torch.vocab.tree
 import os1_tpu_torch.vocab.train
 import os1_tpu_torch.io.realimg
 import os1_tpu_torch.native
+import os1_tpu_torch.accuracy
+import os1_tpu_torch.io.sequences
+import os1_tpu_torch.vocab.validate
 from os1_tpu_torch.features.orb import OrbConfig
 from os1_tpu_torch.geometry.camera import Camera
 from os1_tpu_torch.io import synthetic
@@ -87,6 +92,19 @@ assert len(realimg.photo_room_scene()) == 4
 descs, docs = train.training_descriptors(n_images=2, n_features=64, device="cpu")
 assert train.build_vocabulary(descs, 3, 2, device="cpu").n_words > 0
 assert train.build_vocabulary_native(descs, 3, 2, doc_ids=docs).n_words > 0
+# The tools: the bench configuration and sequences, the accuracy rig's
+# flags, the corpus shards and their merge, the photo views.
+import tempfile
+from os1_tpu_torch import accuracy
+from os1_tpu_torch.io import sequences
+from os1_tpu_torch.vocab import validate
+assert sequences.bench_config().orb.n_features == 1024
+assert len(sequences.scene_and_poses("photo", 3)[1]) == 3
+assert accuracy.thresholds(accuracy.parse_args(["--pose-ref", "--debt", "0"]))["ba_debt_max"] == 0
+with tempfile.TemporaryDirectory() as d:
+    train.save_shard(train.shard_path(0, 2, d), descs, docs)
+    assert len(train.load_corpus_shards([train.shard_path(0, 2, d)])[0]) == len(descs)
+assert validate.render_views(1)[0].shape == (480, 640)
 # The host helpers.
 from os1_tpu_torch import native
 assert native.rgb_to_gray(np.zeros((4, 5, 3), np.uint8)).shape == (4, 5)
