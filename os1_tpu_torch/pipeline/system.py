@@ -48,7 +48,7 @@ from ..map.mirror import DeviceMirror
 from ..map.store import MapStore
 from ..parallel import Mesh, MeshBABackend, default_mesh_backend
 from ..utils import transfer
-from ..utils.profiling import StageTimer
+from ..utils.profiling import StageTimer, detached
 from ..vocab.database import KeyFrameDatabase
 from ..vocab.dbow2 import default_vocabulary, load_binary
 from ..vocab.tree import Vocabulary
@@ -177,9 +177,11 @@ class System:
         self.mirror.refresh()
 
     def set_timer(self, timer: StageTimer) -> None:
-        """Use ``timer`` for every stage of the tracker, the mapper and the
-        loop closer."""
-        self.timer = self.tracker.timer = self.mapper.timer = self.loop_closer.timer = timer
+        """Use ``timer`` for every stage of the tracker (its fused step's
+        too), the mapper and the loop closer, and for the waits of the host
+        reads they share (``host.read``)."""
+        self.timer = self.mapper.timer = self.loop_closer.timer = timer
+        self.tracker.set_timer(timer)
 
     def _on_new_keyframe(self, kf: int, bootstrap: bool = False, frame=None):
         """A keyframe event, on the tracker's thread under the map lock.
@@ -337,9 +339,10 @@ class System:
 
         The system is left as it was: no keyframe, point or database entry,
         the tracker's state and the samplers' draws untouched, the mirror
-        republished from the store. The kernel launches made inside are kept
-        out of the wrappers' counters and reported in
-        ``self.warmup_launches``."""
+        republished from the store, no stage added to the stage timer (the
+        fused step and the host reads run detached from it). The kernel
+        launches made inside are kept out of the wrappers' counters and
+        reported in ``self.warmup_launches``."""
         import time
 
         from ..ops.cuda_build import launches_apart, load_libraries
@@ -358,7 +361,7 @@ class System:
         reads0 = self.reads.count
         z = lambda *shape, dtype=torch.float32: torch.zeros(shape, dtype=dtype, device=dev)  # noqa: E731
         eye = torch.eye(4, device=dev)
-        with launches_apart(kernels) as launched:
+        with launches_apart(kernels) as launched, detached(tr._fused, self.reads):
             load_libraries(cuda=dev.type == "cuda")
             # The frame builder on both input dtypes, the fused step.
             tr._build(z(cfg.orb.height, cfg.orb.width, dtype=torch.uint8), tr.camera)

@@ -127,7 +127,8 @@ class Tracker:
         self.device = torch.device(self.device)
         self.camera = self.cfg.camera.to(self.device)
         self._build = make_frame_builder(self.cfg.orb, self.device)
-        self._fused = tracking_fused.make_fused_tracker(self.cfg, self.reads)
+        self._fused = tracking_fused.make_fused_tracker(self.cfg, self.reads, self.timer)
+        self.reads.timer = self.timer
         self._prev_Tcw = None  # pose two frames back
         self._chain = None  # device-resident (bind, T, prevT, octave) chain
         # In flight: [(frame, fid, timestamp, announced packed, local_ids, anchor,
@@ -148,6 +149,11 @@ class Tracker:
         i = self.cfg.intr
         self._K = torch.tensor([[i[0], 0, i[2]], [0, i[1], i[3]], [0, 0, 1]],
                                dtype=torch.float32, device=self.device)
+
+    def set_timer(self, timer: StageTimer) -> None:
+        """Use ``timer`` for the tracker's stages, the fused step's and the
+        tracker's host reads (``host.read``)."""
+        self.timer = self._fused.timer = self.reads.timer = timer
 
     def _dev(self, a: np.ndarray) -> torch.Tensor:
         return to_device(a, self.device)

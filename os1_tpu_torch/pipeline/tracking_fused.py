@@ -12,6 +12,11 @@ one 0-d value read back after each motion attempt: one or two reads per
 frame, plus the read of the packed result. Predicated or graph forms are
 later work. The host reads the packed result only, in the reference's int32
 layout.
+
+Given a stage timer (``step.timer``), the step times each motion-search
+attempt with its inlier read (``trk.motion``), the fallback (``trk.refkf``),
+the local-map search (``trk.localmap``) and, inside them, each pose solve
+(``trk.pose_opt``).
 """
 from __future__ import annotations
 
@@ -20,7 +25,7 @@ import torch
 
 from ..geometry import camera as cam_mod
 from ..ops.hamming import _to_i32
-from ..utils.profiling import HostReads
+from ..utils.profiling import HostReads, StageTimer, span
 from .config import SlamConfig
 from .frame import FrameData
 from .tracking_kernels import NEG, _track_points_core, _track_reference_kf_core
@@ -68,9 +73,11 @@ def _orthonormalize_se3(T: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def make_fused_tracker(cfg: SlamConfig, reads: HostReads | None = None):
+def make_fused_tracker(cfg: SlamConfig, reads: HostReads | None = None,
+                       timer: StageTimer | None = None):
     """Build the fused step for a fixed config; ``reads`` counts the step's
-    device-to-host reads."""
+    device-to-host reads, ``timer`` (kept as ``step.timer``) times its
+    stages."""
     th = cfg.th
     scale_factor = cfg.orb.scale_factor
     n_levels = cfg.orb.n_levels
@@ -85,6 +92,7 @@ def make_fused_tracker(cfg: SlamConfig, reads: HostReads | None = None):
         P = pt_xyz.shape[0]
         n_feat = frame.xy_un.shape[0]
         dev = pt_xyz.device
+        timer = step.timer
 
         # Constant-velocity prediction (Tracking.cc:278-283).
         if has_velocity:
@@ -105,12 +113,13 @@ def make_fused_tracker(cfg: SlamConfig, reads: HostReads | None = None):
                  pt_min_dist[m_ids], pt_max_dist[m_ids])
 
         def run_motion(radius):
-            r = _track_points_core(
-                pred_T, *m_pts, no_prev, zeros3, no_prev, frame, cam, intr, radius,
-                scale_factor=scale_factor, n_levels=n_levels,
-                use_frustum=False, ratio=0.9, pose_opt_cfg=pose_cfg,
-            )
-            return r[0], r[1], reads.item(r[3])
+            with span(timer, "trk.motion"):
+                r = _track_points_core(
+                    pred_T, *m_pts, no_prev, zeros3, no_prev, frame, cam, intr, radius,
+                    scale_factor=scale_factor, n_levels=n_levels,
+                    use_frustum=False, ratio=0.9, pose_opt_cfg=pose_cfg, timer=timer,
+                )
+                return r[0], r[1], reads.item(r[3])
 
         # Radius-escalation retry (Tracking.cc:617: th -> 2*th when weak).
         T1, b1, n1 = run_motion(th.motion_search_radius)
@@ -124,38 +133,40 @@ def make_fused_tracker(cfg: SlamConfig, reads: HostReads | None = None):
         if ok1:
             T_pre, g_pre, n_pre, ok_pre = T1, g1, n1, True
         else:
-            obs = kf_obs_point[ref_kf].long()
-            obs_c = torch.clamp(obs, 0, P - 1)
-            has_pt = (obs >= 0) & pt_valid[obs_c]
-            T2, b2, _, n2 = _track_reference_kf_core(
-                last_T, kf_desc[ref_kf], has_pt, pt_xyz[obs_c], kf_angle[ref_kf],
-                frame, intr, pose_opt_cfg=pose_cfg,
-            )
-            g_pre = torch.where(b2 >= 0, obs[torch.clamp(b2, 0, n_feat - 1)],
-                                torch.full_like(b2, NEG))
-            T_pre, n_pre = T2, n2
-            ok_pre = (n2 >= th.min_refkf_inliers) & ref_ok
+            with span(timer, "trk.refkf"):
+                obs = kf_obs_point[ref_kf].long()
+                obs_c = torch.clamp(obs, 0, P - 1)
+                has_pt = (obs >= 0) & pt_valid[obs_c]
+                T2, b2, _, n2 = _track_reference_kf_core(
+                    last_T, kf_desc[ref_kf], has_pt, pt_xyz[obs_c], kf_angle[ref_kf],
+                    frame, intr, pose_opt_cfg=pose_cfg, timer=timer,
+                )
+                g_pre = torch.where(b2 >= 0, obs[torch.clamp(b2, 0, n_feat - 1)],
+                                    torch.full_like(b2, NEG))
+                T_pre, n_pre = T2, n2
+                ok_pre = (n2 >= th.min_refkf_inliers) & ref_ok
 
         # ---------------- stage 3: local-map tracking ------------------- #
-        local_ids = local_ids.long()
-        l_ids = torch.clamp(local_ids, 0, P - 1)
-        prev_bound = g_pre >= 0
-        g_pre_c = torch.clamp(g_pre, 0, P - 1)
-        # Scatter-max, as the reference's .at[].max: no boolean indexing,
-        # which would read a count back to the host.
-        bound_now = torch.zeros(P, dtype=torch.int32, device=dev).scatter_reduce(
-            0, g_pre_c, prev_bound.to(torch.int32), reduce="amax") > 0
-        cand = local_valid & pt_valid[l_ids] & ~bound_now[l_ids]
-        L = local_ids.shape[0]
-        T3, lb, inlier, n3, visible = _track_points_core(
-            T_pre, pt_xyz[l_ids], pt_desc[l_ids], cand,
-            torch.zeros(L, dtype=torch.int32, device=dev),
-            pt_normal[l_ids], pt_min_dist[l_ids], pt_max_dist[l_ids],
-            prev_bound, pt_xyz[g_pre_c], prev_bound,
-            frame, cam, intr, th.localmap_search_radius,
-            scale_factor=scale_factor, n_levels=n_levels,
-            use_frustum=True, ratio=0.8, pose_opt_cfg=pose_cfg,
-        )
+        with span(timer, "trk.localmap"):
+            local_ids = local_ids.long()
+            l_ids = torch.clamp(local_ids, 0, P - 1)
+            prev_bound = g_pre >= 0
+            g_pre_c = torch.clamp(g_pre, 0, P - 1)
+            # Scatter-max, as the reference's .at[].max: no boolean indexing,
+            # which would read a count back to the host.
+            bound_now = torch.zeros(P, dtype=torch.int32, device=dev).scatter_reduce(
+                0, g_pre_c, prev_bound.to(torch.int32), reduce="amax") > 0
+            cand = local_valid & pt_valid[l_ids] & ~bound_now[l_ids]
+            L = local_ids.shape[0]
+            T3, lb, inlier, n3, visible = _track_points_core(
+                T_pre, pt_xyz[l_ids], pt_desc[l_ids], cand,
+                torch.zeros(L, dtype=torch.int32, device=dev),
+                pt_normal[l_ids], pt_min_dist[l_ids], pt_max_dist[l_ids],
+                prev_bound, pt_xyz[g_pre_c], prev_bound,
+                frame, cam, intr, th.localmap_search_radius,
+                scale_factor=scale_factor, n_levels=n_levels,
+                use_frustum=True, ratio=0.8, pose_opt_cfg=pose_cfg, timer=timer,
+            )
         g3 = torch.where(lb >= 0, local_ids[torch.clamp(lb, 0, L - 1)],
                          torch.where(prev_bound & inlier, g_pre, torch.full_like(g_pre, NEG)))
         T_final = _orthonormalize_se3(T3)
@@ -163,4 +174,5 @@ def make_fused_tracker(cfg: SlamConfig, reads: HostReads | None = None):
                     packed=pack_result(T_final, g3, n3, ok_pre, n_pre, ok1, visible & cand))
 
     step.reads = reads
+    step.timer = timer
     return step

@@ -26,6 +26,7 @@ from ..matching import core as mcore
 from ..matching import matchers
 from ..optim import optimize_pose
 from ..solvers.initializer import initialize_two_view
+from ..utils.profiling import span
 from .frame import FrameData
 
 NEG = -1
@@ -47,10 +48,11 @@ def _track_points_core(T0, pt_xyz, pt_desc, pt_valid, pt_octave, pt_normal,
                        scale_factor: float = 1.2, n_levels: int = 8,
                        use_frustum: bool = False, ratio: float = 0.8,
                        max_dist: int = mcore.TH_HIGH,
-                       pose_opt_cfg: tuple = (4, 10, True)):
+                       pose_opt_cfg: tuple = (4, 10, True), timer=None):
     """Project candidate points into the frame, match, and pose-optimize
     (TrackWithMotionModel with use_frustum=False; TrackLocalMap's
-    SearchLocalPoints with use_frustum=True).
+    SearchLocalPoints with use_frustum=True). ``timer``: a stage timer that
+    times the pose solve as ``trk.pose_opt`` (the fused step's).
 
     Returns (T_opt, bind [N] local slot per feature, inlier [N], n_inliers,
     visible [P])."""
@@ -88,8 +90,9 @@ def _track_points_core(T0, pt_xyz, pt_desc, pt_valid, pt_octave, pt_normal,
     bound = new_bound | prev_bound
     pts_for_feat = torch.where(new_bound[:, None], pt_xyz[torch.clamp(bind, min=0)], prev_xyz)
     rounds, iters, ar = pose_opt_cfg
-    opt = optimize_pose(T0, pts_for_feat, frame.xy_un, frame.sigma2, bound, intr,
-                        rounds=rounds, iters_per_round=iters, accept_reject=ar)
+    with span(timer, "trk.pose_opt"):
+        opt = optimize_pose(T0, pts_for_feat, frame.xy_un, frame.sigma2, bound, intr,
+                            rounds=rounds, iters_per_round=iters, accept_reject=ar)
     inlier = opt.inlier & bound
     bind = torch.where(inlier & new_bound, bind, torch.full_like(bind, NEG))
     return opt.Tcw, bind, inlier, torch.sum(inlier), visible
@@ -103,10 +106,12 @@ track_points = _track_points_core
 
 
 def _track_reference_kf_core(T0, kf_desc, kf_bound, kf_pt_xyz, kf_angle,
-                             frame: FrameData, intr, pose_opt_cfg: tuple = (4, 10, True)):
+                             frame: FrameData, intr, pose_opt_cfg: tuple = (4, 10, True),
+                             timer=None):
     """Descriptor-only matching against the reference keyframe + pose opt
     (TrackReferenceKeyFrame, Tracking.cc:540-582). Returns (T_opt, bind
-    [N_frame] -> keyframe feature index, inlier, n_inliers)."""
+    [N_frame] -> keyframe feature index, inlier, n_inliers); ``timer`` as
+    :func:`_track_points_core`'s."""
     res = mcore.match_projected(frame.feats.desc, kf_desc, frame.feats.valid, kf_bound,
                                 max_dist=mcore.TH_LOW, ratio=0.7)
     res = mcore.mutual_best(res, kf_desc.shape[0])
@@ -114,8 +119,9 @@ def _track_reference_kf_core(T0, kf_desc, kf_bound, kf_pt_xyz, kf_angle,
     bound = res.ok
     pts_for_feat = kf_pt_xyz[torch.clamp(res.idx, min=0)]
     rounds, iters, ar = pose_opt_cfg
-    opt = optimize_pose(T0, pts_for_feat, frame.xy_un, frame.sigma2, bound, intr,
-                        rounds=rounds, iters_per_round=iters, accept_reject=ar)
+    with span(timer, "trk.pose_opt"):
+        opt = optimize_pose(T0, pts_for_feat, frame.xy_un, frame.sigma2, bound, intr,
+                            rounds=rounds, iters_per_round=iters, accept_reject=ar)
     inlier = opt.inlier & bound
     bind = torch.where(inlier, res.idx, torch.full_like(res.idx, NEG))
     return opt.Tcw, bind, inlier, torch.sum(inlier)

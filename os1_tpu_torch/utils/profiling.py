@@ -16,7 +16,7 @@ from __future__ import annotations
 import threading
 import time
 from collections import defaultdict
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 
 import torch
 
@@ -67,29 +67,51 @@ class StageTimer:
             self.counts.clear()
 
 
+def span(timer: StageTimer | None, name: str):
+    """``timer(name)``, or no stage where ``timer`` is None."""
+    return nullcontext() if timer is None else timer(name)
+
+
+@contextmanager
+def detached(*users):
+    """Take the ``timer`` off each of ``users`` for the block, then put it
+    back."""
+    timers = [u.timer for u in users]
+    for u in users:
+        u.timer = None
+    try:
+        yield
+    finally:
+        for u, t in zip(users, timers):
+            u.timer = t
+
+
 class HostReads:
     """Counts device-to-host reads: each one waits for the device to finish
-    the work queued before it (a host sync when the tensor is on a card)."""
+    the work queued before it (a host sync when the tensor is on a card).
+    With a ``timer``, each read's blocking part is a ``host.read`` stage of
+    it: one stage a read counted, so the two never disagree."""
 
-    def __init__(self):
+    def __init__(self, timer: StageTimer | None = None):
         self.count = 0
+        self.timer = timer
         self._lock = threading.Lock()
 
-    def tick(self) -> None:
-        """Count one read."""
+    def tick(self, wait=None):
+        """Count one read and run its blocking part, ``wait()``, inside the
+        timer's ``host.read`` stage. Returns what ``wait`` returns."""
         with self._lock:
             self.count += 1
+        with span(self.timer, "host.read"):
+            return wait() if wait is not None else None
 
     def numpy(self, t: torch.Tensor):
-        self.tick()
-        return t.detach().cpu().numpy()
+        return self.tick(lambda: t.detach().cpu().numpy())
 
     def numpy_all(self, ts):
         """One read of several results of the same device work: the first
         copy waits for the work, the rest find it done."""
-        self.tick()
-        return [t.detach().cpu().numpy() for t in ts]
+        return self.tick(lambda: [t.detach().cpu().numpy() for t in ts])
 
     def item(self, t: torch.Tensor):
-        self.tick()
-        return t.item()
+        return self.tick(t.item)

@@ -48,10 +48,8 @@ def announce(t) -> Announced:
 
 def fetch(a: Announced, reads: HostReads):
     """Wait for an announced copy and return it as numpy (a list for a
-    tuple): one host read."""
-    reads.tick()
-    if a.done is not None:
-        a.done.synchronize()
+    tuple): one host read, its wait on the copy's event timed."""
+    reads.tick(a.done.synchronize if a.done is not None else None)
     if isinstance(a.host, tuple):
         return [h.numpy() for h in a.host]
     return a.host.numpy()

@@ -1,0 +1,12 @@
+"""Extractor and fused step: host ms a frame in the fused step's motion-model
+searches (``trk.motion``: every attempt, the retry at twice the radius
+included, each with its inlier read), over the window's frames before the
+profiled stretch opens (``harness.Window``). Nothing to read where the
+program has no such stage."""
+LAYER, UNIT, BETTER, SOURCE, MOVES = ("Extractor and fused step", "ms/frame", "lower",
+                                      "program_span", "frames_per_s")
+
+
+def read(w):
+    t, n = w.stages.get("trk.motion", (0.0, 0))
+    return t * 1e3 / w.timed_frames if n and w.timed_frames else None
