@@ -7,14 +7,21 @@ rounds; LM accept/reject (``accept_reject=True``) or damped Gauss-Newton.
 Accept/reject is branchless (``torch.where`` on 0-d tensors), so the solve
 never reads a value back to the host. ``solve_ex`` is used for the 6x6 system
 because ``solve`` synchronises to check for singular input.
+
+Its shapes are fixed for a configuration and it reads nothing back, so on a
+card the solve is captured once per input signature as a CUDA graph and
+replayed: the same kernels in the same order, one host launch instead of
+some 2,700. On the CPU it runs eagerly.
 """
 from __future__ import annotations
 
+import threading
 from typing import NamedTuple
 
 import torch
 
 from ..geometry import se3
+from ..utils.profiling import span
 from . import reprojection as rp
 
 CHI2_MONO = 5.991
@@ -49,11 +56,71 @@ def _normal_system(Tcw, X, uv, intr, sigma2, active):
 
 
 def optimize_pose(Tcw0, points, uv, sigma2, valid, intr, rounds: int = 4,
-                  iters_per_round: int = 10, accept_reject: bool = True) -> PoseOptResult:
+                  iters_per_round: int = 10, accept_reject: bool = True,
+                  timer=None) -> PoseOptResult:
     """Pose-only solve. points [N, 3], uv [N, 2] undistorted pixels,
     sigma2 [N], valid [N] match mask, intr [4]. Leading batch dimensions of
     Tcw0 [..., 4, 4], points and valid are independent solves (``uv`` and
-    ``sigma2`` broadcast)."""
+    ``sigma2`` broadcast).
+
+    On CUDA tensors the solve replays the CUDA graph captured for its
+    signature (:func:`_graph_key`), captured at the first call; each replay
+    is a ``trk.pose_graph`` stage of ``timer``. The results are clones, so a
+    later replay does not overwrite them."""
+    args = (Tcw0, points, uv, sigma2, valid, intr)
+    sched = (rounds, iters_per_round, accept_reject)
+    if not Tcw0.is_cuda:
+        return _optimize_pose_eager(*args, *sched)
+    key = _graph_key(args, sched)
+    with _GRAPHS_LOCK, torch.cuda.device(Tcw0.device):
+        graph = _GRAPHS.get(key)
+        if graph is None:
+            graph = _GRAPHS[key] = _PoseGraph(args, sched)
+        with span(timer, "trk.pose_graph"):
+            return graph(args)
+
+
+def _graph_key(args, sched) -> tuple:
+    """What a captured solve is keyed on: the device, each input's shape and
+    dtype, and the schedule (rounds, iterations a round, accept/reject)."""
+    return (args[0].device, *((tuple(a.shape), a.dtype) for a in args), *sched)
+
+
+class _PoseGraph:
+    """One solve captured as a CUDA graph over static inputs. A call copies
+    the caller's inputs in, replays on the current stream and returns clones
+    of the outputs, so a later replay leaves earlier results as they were."""
+
+    def __init__(self, args, sched):
+        self.static = [a.clone() for a in args]
+        side = torch.cuda.Stream()
+        # PyTorch's warm-up before a capture: lazy initialisations (the
+        # cuBLAS and cuSOLVER handles and workspaces) run outside the graph.
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            _optimize_pose_eager(*self.static, *sched)
+        torch.cuda.current_stream().wait_stream(side)
+        self.graph = torch.cuda.CUDAGraph()
+        # thread_local: launches of other threads during the capture (the
+        # mapping and loop-closing workers on the default stream) neither
+        # join nor break it.
+        with torch.cuda.graph(self.graph, stream=side, capture_error_mode="thread_local"):
+            self.out = _optimize_pose_eager(*self.static, *sched)
+
+    def __call__(self, args) -> PoseOptResult:
+        for s, a in zip(self.static, args):
+            s.copy_(a)
+        self.graph.replay()
+        return PoseOptResult(*(t.clone() for t in self.out))
+
+
+_GRAPHS: dict = {}  # _graph_key -> _PoseGraph
+_GRAPHS_LOCK = threading.Lock()
+
+
+def _optimize_pose_eager(Tcw0, points, uv, sigma2, valid, intr, rounds: int,
+                         iters_per_round: int, accept_reject: bool) -> PoseOptResult:
+    """The solve as a loop of PyTorch operations (what a graph captures)."""
     dev, dt = Tcw0.device, Tcw0.dtype
     batch = Tcw0.shape[:-2]
     eye6 = torch.eye(6, dtype=dt, device=dev)

@@ -52,7 +52,8 @@ def _track_points_core(T0, pt_xyz, pt_desc, pt_valid, pt_octave, pt_normal,
     """Project candidate points into the frame, match, and pose-optimize
     (TrackWithMotionModel with use_frustum=False; TrackLocalMap's
     SearchLocalPoints with use_frustum=True). ``timer``: a stage timer that
-    times the pose solve as ``trk.pose_opt`` (the fused step's).
+    times the pose solve as ``trk.pose_opt`` (the fused step's) and, on a
+    card, its graph replay inside it as ``trk.pose_graph``.
 
     Returns (T_opt, bind [N] local slot per feature, inlier [N], n_inliers,
     visible [P])."""
@@ -92,7 +93,7 @@ def _track_points_core(T0, pt_xyz, pt_desc, pt_valid, pt_octave, pt_normal,
     rounds, iters, ar = pose_opt_cfg
     with span(timer, "trk.pose_opt"):
         opt = optimize_pose(T0, pts_for_feat, frame.xy_un, frame.sigma2, bound, intr,
-                            rounds=rounds, iters_per_round=iters, accept_reject=ar)
+                            rounds=rounds, iters_per_round=iters, accept_reject=ar, timer=timer)
     inlier = opt.inlier & bound
     bind = torch.where(inlier & new_bound, bind, torch.full_like(bind, NEG))
     return opt.Tcw, bind, inlier, torch.sum(inlier), visible
@@ -121,7 +122,7 @@ def _track_reference_kf_core(T0, kf_desc, kf_bound, kf_pt_xyz, kf_angle,
     rounds, iters, ar = pose_opt_cfg
     with span(timer, "trk.pose_opt"):
         opt = optimize_pose(T0, pts_for_feat, frame.xy_un, frame.sigma2, bound, intr,
-                            rounds=rounds, iters_per_round=iters, accept_reject=ar)
+                            rounds=rounds, iters_per_round=iters, accept_reject=ar, timer=timer)
     inlier = opt.inlier & bound
     bind = torch.where(inlier, res.idx, torch.full_like(res.idx, NEG))
     return opt.Tcw, bind, inlier, torch.sum(inlier)
